@@ -21,7 +21,12 @@ Phases (any failure exits non-zero):
    margin_shift and shift_v.
 5. kernel B3 (fused Hessian matrix) the same way at HESS_SHAPES, with
    nonzero shifts and factors; the output must also be symmetric bitwise and
-   repeat bitwise.
+   repeat bitwise. B3 runs on the tensor cores in split-precision TF32, so
+   its operations bound is 3 * N * D * (D + 1) at the TF32 rate (the f32
+   rate's bound is printed beside it), and its library yardstick is
+   cuBLAS's f32 GEMM A^T (A * d) alone, on operands prepared outside the
+   timed window (the port never calls it). No single PyTorch call computes
+   B1's or B2's function, so theirs is null.
 6. the flagship GLMix pass with L-BFGS (bench shape: 100,000 x 64 fixed
    effect, 2,000 users, 500 items, seed 42): runs of 3 passes with the fused
    fixed effect and on the stock path, in the order fused, stock, stock,
@@ -53,6 +58,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores (B3's unit)
 # (N, D) of the B1 and B2 checks: two widths at 100k rows, 1M rows, and a
 # ragged row count at the kernels' widest D
 KERNEL_SHAPES = [(100_000, 64), (100_000, 512), (1_000_000, 64), (20_011, 4096)]
@@ -180,18 +186,25 @@ def errors(got, want, scales):
     return rel, max_abs
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
-    """(least ms the card could take, what bounds it)."""
-    b, f = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound(bytes_moved: float, flops: float, rate: float = F32_FLOPS_PER_S) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it), with operations at
+    ``rate`` per second."""
+    b, f = bytes_moved / HBM_BYTES_PER_S, flops / rate
     return max(b, f) * 1e3, "bytes" if b >= f else "operations"
 
 
 def check_kernel(tag, kernel, plain, scales, cases, cost, stock, timed_shapes, main_shape,
-                 extra_checks=lambda got: {}):
+                 extra_checks=lambda got: {}, library=None, rate=F32_FLOPS_PER_S,
+                 f32_cost=None):
     """Hold ``kernel`` against ``plain`` on every case (n, d, storage, loss,
-    heavy_last, args); time kernel, plain and the stock route at the
-    logistic, not heavy cases of ``timed_shapes``. Returns the timings of
-    the f32 case at ``main_shape``, the shape of the kernel's main path."""
+    heavy_last, args); time kernel, plain, the stock route and, where given,
+    the one library call that computes the same function (``library(args,
+    loss)`` prepares its operands and returns the call) at the logistic,
+    not heavy cases of ``timed_shapes``. ``cost(n, d, bytes per entry)`` is
+    (bytes, operations), the operations at ``rate``; ``f32_cost`` the same
+    work counted for the f32 rate outside the tensor cores, printed beside
+    it. Returns the timings of the f32 case at ``main_shape``, the shape of
+    the kernel's main path."""
     import torch
 
     from photon_ml_tpu_torch.function import losses
@@ -220,16 +233,19 @@ def check_kernel(tag, kernel, plain, scales, cases, cost, stock, timed_shapes, m
         if loss is not losses.logistic_loss or heavy or (n, d) not in timed_shapes:
             continue
         eb = args[0].element_size()
-        bound_ms, bound_by = bound(*cost(n, d, eb))
+        bound_ms, bound_by = bound(*cost(n, d, eb), rate)
         t = {
             "ms": gpu_ms(lambda: kernel(*args, loss=loss), 20, cold=True),
             "warm_ms": gpu_ms(lambda: kernel(*args, loss=loss), 50, cold=False),
             "plain_ms": gpu_ms(lambda: plain(*args, loss=loss), 20, cold=True),
             "stock_ms": gpu_ms(stock(args, loss), 20, cold=True),
+            "library_ms": gpu_ms(library(args, loss), 20, cold=True) if library else None,
         }
+        lib = f", library {t['library_ms']:.4f} ms" if library else ""
+        f32 = f", f32-rate bound {bound(*f32_cost(n, d, eb))[0]:.4f} ms" if f32_cost else ""
         print(f"{tag}: {name}: kernel {t['ms']:.4f} ms (warm L2 {t['warm_ms']:.4f}), plain "
-              f"{t['plain_ms']:.4f} ms, stock {t['stock_ms']:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), {cost(n, d, eb)[0] / t['ms'] / 1e6:.0f} GB/s, "
+              f"{t['plain_ms']:.4f} ms, stock {t['stock_ms']:.4f} ms{lib}, bound {bound_ms:.4f} ms "
+              f"({bound_by}){f32}, {cost(n, d, eb)[0] / t['ms'] / 1e6:.0f} GB/s, "
               f"{cost(n, d, eb)[1] / t['ms'] / 1e9:.2f} TFLOP/s")
         if storage == torch.float32 and (n, d) == main_shape:
             main = dict(t, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_abs)
@@ -339,14 +355,27 @@ def check_b3():
         obj = GLMObjective(loss, norm, allow_fused=False)
         return lambda: obj.hessian_matrix(data, coef)
 
+    def library(args, loss):
+        """cuBLAS's f32 GEMM alone, A^T (A * d), on operands prepared here,
+        outside the timed window; the port never calls it."""
+        d_rows, A = fused_hess._hess_rows(*args, loss)
+        Ad = A * d_rows[:, None]
+        return lambda: torch.mm(A.T, Ad)
+
+    def bytes_moved(n, d, eb):
+        return n * d * eb + 12 * n + 12 * d + 4 * d * d
+
     others = (losses.squared_loss, losses.poisson_loss, losses.smoothed_hinge_loss)
     return check_kernel(
         "b3", fused_hess.fused_hessian_matrix, fused_hess.fused_hessian_matrix_plain,
         fused_hess.fused_hessian_matrix_scales,
         _cases(HESS_SHAPES, 3000, inputs, [(MAIN_SHAPE, others)], HESS_SHAPES[-1]),
-        lambda n, d, eb: (n * d * eb + 12 * n + 12 * d + 4 * d * d, n * d * (d + 1) + 2 * n * d),
+        # split-precision TF32: three tensor-core products per multiply-add
+        lambda n, d, eb: (bytes_moved(n, d, eb), 3 * n * d * (d + 1)),
         stock, HESS_SHAPES, MAIN_SHAPE,
         extra_checks=lambda got: {"symmetric bitwise": torch.equal(got[0], got[0].T)},
+        library=library, rate=TF32_FLOPS_PER_S,
+        f32_cost=lambda n, d, eb: (bytes_moved(n, d, eb), n * d * (d + 1) + 2 * n * d),
     )
 
 
@@ -554,7 +583,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source + src, "replaces": replaces,
             "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None,
+            "library_ms": t["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

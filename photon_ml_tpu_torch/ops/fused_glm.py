@@ -31,7 +31,9 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import math
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -39,11 +41,13 @@ from photon_ml_tpu_torch.function.losses import PointwiseLoss
 
 Tensor = torch.Tensor
 
-# The kernels' phase-2 registers hold 16 columns for each of 256 threads.
+# A row of X spreads over at most 256 threads, 16 values each.
 MAX_FUSED_DIM = 4096
-# Bytes of one staged [BN, D] tile of X (the kernel double-buffers it).
-TILE_BYTES = 32 * 1024
+# Bytes of one staged [BN, D] tile of X (the kernel keeps a ring of four).
+TILE_BYTES = 16 * 1024
 MAX_TILE_ROWS = 64
+MAX_CTAS_PER_SM = 4  # the persistent grid: at most this many CTAs on each SM
+TICKETS = 64  # integer counters of the in-launch cross-CTA sum, per stream
 
 _enabled: bool | None = None
 
@@ -211,8 +215,8 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.fused_glm_plan.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i)]
         lib.fused_glm_plan.restype = i
-        lib.fused_glm_launch.argtypes = [i, i, i, i, p, p, p, p, p, p, p, ll, i, i, i, i,
-                                         p, p, p, p, p, p, p]
+        lib.fused_glm_launch.argtypes = [i, i, i, i, p, p, p, p, p, p, p, p, ll, i, i, i, ll, i,
+                                         i, p, p, p, p]
         lib.fused_glm_launch.restype = i
         lib._typed = True
     return lib
@@ -220,28 +224,78 @@ def _lib():
 
 _B1, _B2 = 0, 1  # the kernel's mode argument
 _plans: dict[tuple, tuple[int, int, int]] = {}
+_tickets: dict[tuple[int, int], Tensor] = {}
+
+
+class RowPartition(NamedTuple):
+    """The persistent grid's cut of N rows: CTA b owns rows
+    [b * rows_per_cta, min(N, (b + 1) * rows_per_cta)), and the in-launch
+    sum adds the CTAs' partials in groups of ``group`` consecutive CTAs."""
+
+    rows_per_cta: int
+    ctas: int
+    group: int
+
+    @property
+    def groups(self) -> int:
+        return -(-self.ctas // self.group)
+
+
+def partition_rows(n: int, max_ctas: int) -> RowPartition:
+    """Cut N rows into at most ``max_ctas`` contiguous, non-empty ranges of
+    nearly equal length (one empty range when N = 0), grouped by about the
+    square root of their count so both levels of the sum stay short."""
+    rows = max(1, -(-n // max_ctas))
+    ctas = max(1, -(-n // rows))
+    return RowPartition(rows, ctas, max(1, math.isqrt(ctas - 1) + 1))
+
+
+def tile_rows(d: int, elem: int) -> int:
+    """BN, the rows of one staged tile of a D-column X of ``elem``-byte entries."""
+    return max(1, min(MAX_TILE_ROWS, TILE_BYTES // (d * elem)))
+
+
+def threads_per_row(d: int, elem: int, vec: int) -> int:
+    """Threads that share one row of X in a kernel: a power of two, at most
+    256, each holding 16 of the row's values (``vec``: 16-byte words of the
+    staged tile; else single elements)."""
+    units = d // (16 // elem) if vec else d
+    per_thread = elem if vec else 16  # words of 16 / elem values, or elements
+    tpr = 1
+    while tpr * per_thread < units:
+        tpr *= 2
+    return tpr
 
 
 def _plan(mode: int, dtype_id: int, vec: int, loss_id: int, d: int, elem: int,
           device) -> tuple[int, int, int]:
-    """(tile rows BN, lanes per row, max resident CTAs) for one instantiation."""
+    """(tile rows BN, threads per row, max persistent CTAs) for one instantiation."""
     key = (mode, dtype_id, vec, loss_id, d, device.index)
     plan = _plans.get(key)
     if plan is None:
-        bn = max(1, min(MAX_TILE_ROWS, TILE_BYTES // (d * elem)))
-        per_lane = 16 // elem if vec else 1
-        chunks = -(-d // per_lane)
-        lpr = 1
-        while lpr < min(chunks, 32):
-            lpr *= 2
+        bn = tile_rows(d, elem)
+        tpr = threads_per_row(d, elem, vec)
         per_sm = ctypes.c_int(0)
         err = _lib().fused_glm_plan(mode, dtype_id, vec, loss_id, d, bn, ctypes.byref(per_sm))
         if err != 0 or per_sm.value < 1:
             raise RuntimeError(f"fused_glm_plan failed (cuda error {err}, {per_sm.value} CTAs/SM)")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = (bn, lpr, per_sm.value * sms)
+        plan = (bn, tpr, min(per_sm.value, MAX_CTAS_PER_SM) * sms)
         _plans[key] = plan
     return plan
+
+
+def ticket_counters(device, stream: int) -> Tensor:
+    """The int32 counters of the kernels' in-launch cross-CTA sums on
+    ``stream``. Every launch leaves the counters it used at 0 again, so the
+    launches of one stream, which run in order, share them; another stream
+    gets its own. Zeroed once, at the stream's first launch."""
+    key = (device.index, stream)
+    t = _tickets.get(key)
+    if t is None:
+        t = torch.zeros(TICKETS, dtype=torch.int32, device=device)
+        _tickets[key] = t
+    return t
 
 
 def check_operand(name: str, t: Tensor, shape: tuple, dtypes: tuple, device) -> None:
@@ -270,7 +324,7 @@ def check_design(X: Tensor, max_dim: int, fn: str) -> tuple[int, int]:
     return n, d
 
 
-def _launch(mode, X, y, off, w, coef, v, shift_v, loss, fn):
+def _launch(mode, X, y, off, w, coef, v, margin_shift, shift_v, loss, fn):
     """Check the operands, plan and launch mode ``mode`` of the row-streaming
     kernel; returns (val, grad [D], wsum) as views of one f32 buffer."""
     n, d = check_design(X, MAX_FUSED_DIM, fn)
@@ -279,6 +333,7 @@ def _launch(mode, X, y, off, w, coef, v, shift_v, loss, fn):
     for name, t in (("labels", y), ("offsets", off), ("weights", w)):
         check_operand(name, t, (n,), (f32,), dev)
     check_operand("eff_coef", coef, (d,), (f32,), dev)
+    check_operand("margin_shift", margin_shift, (), (f32,), dev)
     if mode == _B2:
         check_operand("eff_v", v, (d,), (f32,), dev)
         check_operand("shift_v", shift_v, (), (f32,), dev)
@@ -287,24 +342,21 @@ def _launch(mode, X, y, off, w, coef, v, shift_v, loss, fn):
     # the plan's attribute and occupancy query and the launch act on the
     # current device: make it X's
     with torch.cuda.device(dev):
-        bn, lpr, max_ctas = _plan(mode, dtype_id, vec, loss.kernel_id, d, elem, dev)
-        n_ctas = max(1, min(-(-n // bn), max_ctas))
-        parts = torch.empty(n_ctas * (d + 2), dtype=f32, device=dev)
+        bn, tpr, max_ctas = _plan(mode, dtype_id, vec, loss.kernel_id, d, elem, dev)
+        part = partition_rows(n, max_ctas)
+        scratch = torch.empty((part.ctas + part.groups) * (d + 2), dtype=f32, device=dev)
         out = torch.empty(d + 2, dtype=f32, device=dev)
-        part_grad, part_val = parts[: n_ctas * d], parts[n_ctas * d : n_ctas * (d + 1)]
-        part_wsum = parts[n_ctas * (d + 1) :]
-        grad, val, wsum = out[:d], out[d], out[d + 1]
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().fused_glm_launch(
             mode, dtype_id, vec, loss.kernel_id, X.data_ptr(), y.data_ptr(), off.data_ptr(),
             w.data_ptr(), coef.data_ptr(), v.data_ptr() if v is not None else None,
-            shift_v.data_ptr() if shift_v is not None else None, n, d, bn, lpr, n_ctas,
-            part_val.data_ptr(), part_grad.data_ptr(), part_wsum.data_ptr(),
-            val.data_ptr(), grad.data_ptr(), wsum.data_ptr(), stream,
+            margin_shift.data_ptr(), shift_v.data_ptr() if shift_v is not None else None,
+            n, d, bn, tpr, part.rows_per_cta, part.ctas, part.group, scratch.data_ptr(),
+            ticket_counters(dev, stream).data_ptr(), out.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed with cuda error {err}")
-    return val, grad, wsum
+    return out[d], out[:d], out[d + 1]
 
 
 def fused_loss_grad_sums(
@@ -328,9 +380,8 @@ def fused_loss_grad_sums(
             X, labels, offsets, weights, eff_coef, margin_shift, loss=loss
         )
     f32 = torch.float32
-    off = (offsets + margin_shift).to(f32)  # margin_shift rides the offsets
-    out = _launch(_B1, X, labels.to(f32), off, weights.to(f32), eff_coef.to(f32), None, None,
-                  loss, "fused_loss_grad_sums")
+    out = _launch(_B1, X, labels.to(f32), offsets.to(f32), weights.to(f32), eff_coef.to(f32),
+                  None, margin_shift.to(f32), None, loss, "fused_loss_grad_sums")
     fused_loss_grad_sums.launches += 1
     return out
 
@@ -363,9 +414,9 @@ def fused_hessian_vector_sums(
             X, labels, offsets, weights, eff_coef, margin_shift, eff_v, shift_v, loss=loss
         )
     f32 = torch.float32
-    off = (offsets + margin_shift).to(f32)  # margin_shift shifts z; shift_v stays apart
-    _, vec, usum = _launch(_B2, X, labels.to(f32), off, weights.to(f32), eff_coef.to(f32),
-                           eff_v.to(f32), shift_v.to(f32), loss, "fused_hessian_vector_sums")
+    _, vec, usum = _launch(_B2, X, labels.to(f32), offsets.to(f32), weights.to(f32),
+                           eff_coef.to(f32), eff_v.to(f32), margin_shift.to(f32), shift_v.to(f32),
+                           loss, "fused_hessian_vector_sums")
     fused_hessian_vector_sums.launches += 1
     return vec, usum
 

@@ -27,7 +27,10 @@ TOL = 1e-5
 LOSSES = [losses.logistic_loss, losses.squared_loss, losses.poisson_loss, losses.smoothed_hinge_loss]
 
 
-def _inputs(n, d, storage, seed, heavy_last=False):
+def _inputs(n, d, storage, seed, heavy_last=False, misaligned=False):
+    """(X, y, off, w, coef, margin_shift) on the card, ~5% dead rows, half of
+    them holding inf. ``misaligned``: X is a view whose base is one element
+    past a 16-byte boundary, so no row is 16-byte aligned."""
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(n, d)).astype(np.float32)
     y = (rng.uniform(size=n) > 0.5).astype(np.float32)
@@ -43,6 +46,10 @@ def _inputs(n, d, storage, seed, heavy_last=False):
     coef = (rng.normal(size=d) * 0.5 / np.sqrt(d)).astype(np.float32)
     args = [torch.from_numpy(a).cuda() for a in (X, y, off, w, coef)]
     args[0] = args[0].to(storage)
+    if misaligned:
+        buf = torch.empty(n * d + 16, dtype=storage, device="cuda")
+        skip = (-buf.data_ptr() % 16) // buf.element_size() + 1
+        args[0] = buf[skip: skip + n * d].view(n, d).copy_(args[0])
     return args + [torch.tensor(0.3, device="cuda")]
 
 
@@ -157,8 +164,8 @@ def _ragged_rows(d):
     one row on this card (fused_hess.plan), for the heavy-last-row case."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for n in range(20_000, 21_000):
-        _, chunks, rows = fused_hess.plan(n, d, sms)
-        if (n - (chunks - 1) * rows) % fused_hess.ROWS_PER_STEP == 1:
+        p = fused_hess.plan(n, d, 4, sms)
+        if (n - (p.ctas - 1) * p.rows_per_cta) % p.tile_rows == 1:
             return n
     raise AssertionError("no such row count")
 
@@ -216,3 +223,120 @@ def test_hessian_kernels_reject_what_they_do_not_take():
     with pytest.raises(ValueError):
         fused_hess.fused_hessian_matrix(wide, *(a[:4] for a in (y, off, w)), zd, shift, zd, zd + 1,
                                         loss=loss)
+
+
+def _b2_args(args, d, seed=5):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    v = torch.randn(d, generator=g, device="cuda") / d**0.5
+    return args + [v, torch.tensor(-0.7, device="cuda")]
+
+
+def _hess_args(args, d, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shifts = torch.randn(d, generator=g, device="cuda") * 0.2
+    factors = torch.rand(d, generator=g, device="cuda") * 1.5 + 0.5
+    return args + [shifts, factors]
+
+
+def _kernel_cases(args, d):
+    """(kernel, plain, scales, args) of B1, B2 and B3 on one problem."""
+    return [
+        (fused_glm.fused_loss_grad_sums, fused_glm.fused_loss_grad_sums_plain,
+         fused_glm.fused_loss_grad_sums_scales, args),
+        (fused_glm.fused_hessian_vector_sums, fused_glm.fused_hessian_vector_sums_plain,
+         fused_glm.fused_hessian_vector_sums_scales, _b2_args(args, d)),
+        (fused_hess.fused_hessian_matrix, fused_hess.fused_hessian_matrix_plain,
+         fused_hess.fused_hessian_matrix_scales, _hess_args(args, d, seed=7)),
+    ]
+
+
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+# N below one staged tile; D = 1, 63 and 65 around the whole-row widths, 129
+# and 257 past B3's whole-row cut (ROW_MAX_DIM), 136 a tile path with
+# aligned rows and a ragged column block; "misaligned" an X view whose base
+# is off a 16-byte boundary at an otherwise aligned width
+EDGE_SHAPES = [(5, 64), (3, 8), (3000, 1), (3000, 63), (3000, 65), (3000, 129), (3000, 136),
+               (3000, 257), "misaligned"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=str)
+def test_kernels_at_edge_shapes(shape, storage):
+    """B1, B2 and B3 against their plain versions at the edges of their
+    tilings, all four losses; every output repeats bitwise, B3's is
+    symmetric bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    misaligned = shape == "misaligned"
+    n, d = (3000, 64) if misaligned else shape
+    args = _inputs(n, d, storage, seed=3 * n + d, misaligned=misaligned)
+    if misaligned:
+        assert args[0].data_ptr() % 16 != 0
+    results = {}
+    for kernel, plain, scales, kargs in _kernel_cases(args, d):
+        for loss in LOSSES:
+            got = _tuple(kernel(*kargs, loss=loss))
+            again = _tuple(kernel(*kargs, loss=loss))
+            want = _tuple(plain(*kargs, loss=loss))
+            scale = _tuple(scales(*kargs, loss=loss))
+            results[kernel.__name__, loss.name] = (
+                all(bool(torch.isfinite(t).all()) for t in got),
+                all(_within(a, b, c) for a, b, c in zip(got, want, scale)),
+                all(torch.equal(a, b) for a, b in zip(got, again)),
+                kernel is not fused_hess.fused_hessian_matrix or torch.equal(got[0], got[0].T),
+            )
+    assert all(all(r) for r in results.values()), results
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(100_000, 64), (20_011, 512)])
+def test_back_to_back_and_second_stream_repeat_bitwise(shape):
+    """Two calls queued back to back, and a call on a second stream running
+    beside one on the first, return the same bits: the in-launch sum's
+    integer tickets are reset by each launch and never shared across
+    streams."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n, d = shape
+    args = _inputs(n, d, torch.float32, seed=11)
+    loss = losses.logistic_loss
+    side = torch.cuda.Stream()
+    for kernel, _, _, kargs in _kernel_cases(args, d):
+        first = _tuple(kernel(*kargs, loss=loss))
+        torch.cuda.synchronize()
+        side.wait_stream(torch.cuda.current_stream())
+        queued = [_tuple(kernel(*kargs, loss=loss)) for _ in range(2)]
+        with torch.cuda.stream(side):
+            beside = [_tuple(kernel(*kargs, loss=loss)) for _ in range(3)]
+        queued += [_tuple(kernel(*kargs, loss=loss)) for _ in range(2)]
+        torch.cuda.synchronize()
+        for i, out in enumerate(queued + beside):
+            diff = [float((a.double() - b.double()).abs().max()) for a, b in zip(first, out)]
+            assert all(torch.equal(a, b) for a, b in zip(first, out)), (kernel.__name__, i, diff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+def test_hvp_margin_shift_shifts_z_not_dv(storage):
+    """B2 reads margin_shift in the kernel: it shifts z exactly as the same
+    shift on the offsets does (bitwise), and not dv (moving it onto shift_v
+    changes the result)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    X, y, off, w, coef, ms = _inputs(50_000, 64, storage, seed=13)
+    v, sv = _b2_args([], 64)
+    zero = torch.tensor(0.0, device="cuda")
+    for loss in LOSSES:
+        got = fused_glm.fused_hessian_vector_sums(X, y, off, w, coef, ms, v, sv, loss=loss)
+        on_offsets = fused_glm.fused_hessian_vector_sums(X, y, off + ms, w, coef, zero, v, sv,
+                                                         loss=loss)
+        on_dv = fused_glm.fused_hessian_vector_sums(X, y, off, w, coef, zero, v, sv + ms, loss=loss)
+        want = fused_glm.fused_hessian_vector_sums_plain(X, y, off, w, coef, ms, v, sv, loss=loss)
+        scale = fused_glm.fused_hessian_vector_sums_scales(X, y, off, w, coef, ms, v, sv, loss=loss)
+        assert all(_within(a, b, c) for a, b, c in zip(got, want, scale)), loss.name
+        assert all(torch.equal(a, b) for a, b in zip(got, on_offsets)), loss.name
+        assert not _within(on_dv[0], got[0], scale[0]), loss.name

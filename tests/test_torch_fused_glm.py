@@ -133,3 +133,28 @@ def test_switch_and_gate(monkeypatch):
         assert fused_glm.enabled_override() is True
     assert fused_glm.enabled_override() is None
 
+
+
+@pytest.mark.parametrize("d", [1, 63, 64, 65, 257, 512, 4096])
+@pytest.mark.parametrize("rows", ["0", "1", "tile-1", "tile+1", "100000"])
+def test_row_partition_covers_every_row(rows, d):
+    """B1/B2's persistent grid on a 132-SM card, f32 and bf16: at most
+    MAX_CTAS_PER_SM CTAs per SM, each owning a non-empty range of rows (one
+    empty range when N = 0), the ranges in order and every row in exactly
+    one; groups of the in-launch sum that cover the CTAs, with their
+    counters within TICKETS; tiles of at most MAX_TILE_ROWS rows and
+    TILE_BYTES bytes."""
+    for elem in (4, 2):
+        bn = fused_glm.tile_rows(d, elem)
+        assert 1 <= bn <= fused_glm.MAX_TILE_ROWS
+        assert bn == 1 or bn * d * elem <= fused_glm.TILE_BYTES
+        n = {"0": 0, "1": 1, "tile-1": bn - 1, "tile+1": bn + 1, "100000": 100_000}[rows]
+        part = fused_glm.partition_rows(n, fused_glm.MAX_CTAS_PER_SM * 132)
+        assert 1 <= part.ctas <= fused_glm.MAX_CTAS_PER_SM * 132
+        begins = [b * part.rows_per_cta for b in range(part.ctas)]
+        ends = [min(n, b + part.rows_per_cta) for b in begins]
+        assert begins[0] == 0 and ends[-1] == n
+        assert all(e == b for e, b in zip(ends, begins[1:]))
+        assert all(e > b for b, e in zip(begins, ends)) or (n == 0 and part.ctas == 1)
+        assert part.groups * part.group >= part.ctas > (part.groups - 1) * part.group
+        assert part.groups + 1 <= fused_glm.TICKETS

@@ -237,12 +237,42 @@ def test_hessian_gate(monkeypatch):
     assert obj._fused_hessian_matrix(narrow, torch.zeros(4), 0.0) is None  # off by default
 
 
-@pytest.mark.parametrize("n,d", [(0, 5), (1, 5), (289, 8), (20_011, 257), (100_000, 512)])
+@pytest.mark.parametrize("n,d", [(0, 5), (1, 5), (289, 8), (100_000, 64), (1_000_000, 64),
+                                 (100_000, 128), (0, 129), (20_011, 257), (100_000, 512)])
 def test_hessian_plan_covers_every_row(n, d):
-    """B3's launch plan on a 132-SM card: at least one CTA and one chunk of
-    at least one row (an empty problem too), chunks that cover every row
-    with none left empty past the first, and partials within PARTIAL_BYTES."""
-    weight_ctas, chunks, rows = fused_hess.plan(n, d, 132)
-    assert weight_ctas >= 1 and chunks >= 1 and rows >= 1
-    assert chunks * rows >= n and (chunks - 1) * rows < max(n, 1)
-    assert chunks == 1 or chunks * 4 * d * d <= fused_hess.PARTIAL_BYTES
+    """B3's launch plan on a 132-SM card, f32 and bf16: at least one CTA of
+    at least one row (an empty problem too); CTA ranges (whole rows) or row
+    chunks (tiles) in order, every row in exactly one, none empty past the
+    first; partials within PARTIAL_BYTES, and whole-row partials at D <= 64
+    a quarter of that or less (three CTAs an SM); the whole-row path up to
+    ROW_MAX_DIM, staging a multiple of 8 rows a step, a power of two lanes
+    a row that hold its values, with no fewer lanes than keep all threads
+    busy."""
+    per_sm = 3 if d <= 64 else 1  # whole-row CTAs an SM holds
+    for elem in (4, 2):
+        p = fused_hess.plan(n, d, elem, 132, per_sm)
+        assert p.whole_rows == (d <= fused_hess.ROW_MAX_DIM)
+        assert p.ctas >= 1 and p.rows_per_cta >= 1 and p.tile_rows % 8 == 0
+        begins = [b * p.rows_per_cta for b in range(p.ctas)]
+        ends = [min(n, b + p.rows_per_cta) for b in begins]
+        assert begins[0] == 0 and ends[-1] == n
+        assert all(e == b for e, b in zip(ends, begins[1:]))
+        assert all(e > b for b, e in zip(begins, ends)) or (n == 0 and p.ctas == 1)
+        assert 4 * p.partial_floats <= fused_hess.PARTIAL_BYTES
+        if p.whole_rows:
+            for vec in (0, 1) if d * elem % 16 == 0 else (0,):
+                tpr = fused_hess.row_threads(d, elem, vec, p.tile_rows)
+                words, per_lane = (d * elem // 16, max(1, elem // 2)) if vec else (d, 8)
+                assert tpr & (tpr - 1) == 0 and tpr <= 32 and tpr * per_lane >= words
+                assert tpr == 32 or 256 // tpr <= p.tile_rows or tpr * per_lane < 2 * words
+            width = d * (d + 1) // 2
+            groups = -(-p.ctas // p.group)
+            assert p.partial_floats == (p.ctas + groups) * width
+            assert groups + 1 <= fused_glm.TICKETS and p.ctas <= 132 * per_sm
+            if d <= 64:
+                assert 16 * p.partial_floats <= fused_hess.PARTIAL_BYTES
+        else:
+            side = -(-d // fused_hess.TILE)
+            assert p.tiles == side * (side + 1) // 2 <= fused_glm.TICKETS
+            assert p.ctas * p.tiles <= 132 and p.weight_ctas >= 1
+            assert p.partial_floats == p.ctas * p.tiles * fused_hess.TILE ** 2
