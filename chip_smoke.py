@@ -72,6 +72,30 @@ Phases (any failure exits non-zero):
    captured once and then replayed, and a bf16-policy engine within 0.05 of
    the largest f32 score.
 
+11. slice 6 (L1 and elastic net, box constraints, the direct and
+   measured-"auto" random-effect solves, feature normalization): (a)
+   config #2's elastic-net half, linear and Poisson OWLQN with
+   ELASTIC_NET (alpha 0.5) through GLMOptimizationProblem.run on Path T's
+   data, fused then stock: B1 must launch on the fused solves only, the
+   objectives agree within PATH_T_AGREE, every coefficient within
+   PATH_T_RECOVERY of the generating one, and both runs' exact zeros are
+   printed; (b) the flagship pass with ``re_solver="direct"``, fused then
+   stock (3 passes): the FE objective within 1% of phase 6's L-BFGS stock
+   anchor, the mean RE iterations per bucket printed beside phase 6's; (c)
+   three ``GameEstimator.fit``s on phase 9's split, each fused then stock:
+   (i) a NEWTON fixed effect on the shard with an intercept column and its
+   other columns moved by SHARD_SHIFT, both shards standardized, RE
+   ``re_solver="auto"``, checkpointed, then crashed by
+   ``coord.update:crash:4`` and resumed: equal to the whole fit bitwise,
+   its "auto" record included, with B1 and B3 launching under shifts above
+   1 and the fused FE coefficients within SHIFTED_FE_AGREE of the stock
+   ones;
+   (ii) an OWLQN elastic-net fixed effect with direct RE solves; (iii) an
+   LBFGSB fixed effect in a box built by ``constraints.build_bound_vectors``
+   from a constraint string: every coefficient inside its box and some
+   bound binding. No fit may reject an update; each prints its seconds,
+   host syncs, launches and validation AUC.
+
 Each path's kernel counts are set to 0 just before its runs and read just
 after. The line before the last is a JSON summary of every kernel; the last
 line is ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -120,6 +144,16 @@ BF16_AGREE = 0.05  # bf16-policy engine vs f32, of the largest score (tests/test
 # rounded value (CUDA's expf is within 2 ulps, numpy's f32 exp measured 3;
 # one rounding each for the add and the division), so up to 8 apart
 LINK_ULPS = 8
+# phase 11: elastic-net weight (alpha 0.5: L1 500, shrinkage ~0.01 at 50,000
+# standard-normal rows, inside PATH_T_RECOVERY) and the box of 11c(iii)
+ELASTIC_NET_WEIGHT = 1000.0
+BOX = 0.1
+# 11c(i): the FE shard's columns are moved by SHARD_SHIFT, so standardization
+# shifts them by as much (the standardized problem is the same one), and a B3
+# that dropped the shifts would build another Hessian; the fused FE
+# coefficients must agree with the stock ones within SHIFTED_FE_AGREE
+SHARD_SHIFT = 1.5
+SHIFTED_FE_AGREE = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -438,10 +472,12 @@ def read_counts() -> dict:
     return {k.__name__: k.launches for k in kernel_counts()}
 
 
-def run_glmix(opt: str, label: str, wl=None):
+def run_glmix(opt: str, label: str, wl=None, re_solver="lbfgs", order=(True, False, False, True)):
     """Runs of PASSES flagship passes with optimizer ``opt`` for every
-    coordinate, fused, stock, stock, fused (each side runs first once).
-    Returns ([(fuse, fe_value, counts, fixed coefficients)], workload)."""
+    coordinate and ``re_solver`` for the random effects, in ``order`` (by
+    default fused, stock, stock, fused: each side runs first once).
+    Returns ([(fuse, fe_value, counts, fixed coefficients, mean RE
+    iterations per bucket)], workload)."""
     import torch
 
     from photon_ml_tpu_torch import interop
@@ -470,11 +506,12 @@ def run_glmix(opt: str, label: str, wl=None):
         )
 
     runs = []
-    for fuse in (True, False, False, True):
+    for fuse in order:
         kind = "fused" if fuse else "stock"
+        re_iters = []
         with fused_glm.fused_override(True):
             step = make_game_step(data, TaskType.LOGISTIC_REGRESSION, cfg(50), [cfg(30), cfg(30)],
-                                  fuse_fe=fuse, device="cuda")
+                                  re_solver=re_solver, fuse_fe=fuse, device="cuda")
             params = init_game_params(data, device="cuda")
             torch.cuda.synchronize()
             zero_counts()
@@ -486,27 +523,31 @@ def run_glmix(opt: str, label: str, wl=None):
                 torch.cuda.synchronize()
                 seconds.append(time.perf_counter() - t0)
                 re_it = [[int(x) for x in r] for r in diag["re_iterations_max"]]
+                re_iters += [x for r in re_it for x in r]
                 print(f"{label} {kind} run {len(runs)} pass {p}: fe_value {float(diag['fe_value']):.6f} "
                       f"fe_iterations {int(diag['fe_iterations'])} re_iterations_max {re_it} "
                       f"{seconds[-1]:.4f} s {n / seconds[-1]:.0f} samples/s "
                       f"host_syncs {any_lane.syncs - syncs0}")
             counts = read_counts()
+        re_mean = sum(re_iters) / len(re_iters)
         print(f"{label} {kind} run {len(runs)}: launches over {PASSES} passes {counts}, "
-              f"samples/s over the run {n * PASSES / sum(seconds):.0f}")
+              f"samples/s over the run {n * PASSES / sum(seconds):.0f}, mean RE iterations per "
+              f"bucket {re_mean:.2f}")
         for t in (params["fixed"], *params["re"], diag["total_scores"]):
             if not bool(torch.isfinite(t).all()):
                 fail(f"non-finite {label} {kind} parameters or scores")
         want = [(rc.n_entities + 1, rc.max_k) for rc in data.re]
         if params["fixed"].shape != (data.fe_X.n_cols,) or [tuple(t.shape) for t in params["re"]] != want:
             fail(f"unexpected {label} {kind} parameter shapes")
-        runs.append((fuse, float(diag["fe_value"]), counts, params["fixed"]))
-    print(f"{label}: repeat runs bitwise equal: fused {torch.equal(runs[0][3], runs[3][3])}, "
-          f"stock {torch.equal(runs[1][3], runs[2][3])}")
+        runs.append((fuse, float(diag["fe_value"]), counts, params["fixed"], re_mean))
+    if len(runs) == 4:
+        print(f"{label}: repeat runs bitwise equal: fused {torch.equal(runs[0][3], runs[3][3])}, "
+              f"stock {torch.equal(runs[1][3], runs[2][3])}")
     return runs, wl
 
 
 def check_launches(label, runs, kernels):
-    for fuse, _, counts, _ in runs:
+    for fuse, _, counts, *_ in runs:
         for k in kernels:
             if (counts[k] > 0) != fuse:
                 fail(f"{label}: {k} launched {counts[k]} times on a {'fused' if fuse else 'stock'} run")
@@ -521,11 +562,12 @@ def gap_check(label, value, anchor, limit):
 
 def run_flagship():
     """Phase 6: the L-BFGS pass. Returns (B1 launches of the first fused
-    run, the stock FE objective that anchors Path N, the workload)."""
+    run, the stock FE objective that anchors Path N, the stock run's mean
+    RE iterations per bucket, the workload)."""
     runs, wl = run_glmix("LBFGS", "flagship")
     check_launches("flagship", runs, ["fused_loss_grad_sums"])
     gap_check("flagship", runs[0][1], runs[1][1], FLAGSHIP_QUALITY)
-    return runs[0][2]["fused_loss_grad_sums"], runs[1][1], wl
+    return runs[0][2]["fused_loss_grad_sums"], runs[1][1], runs[1][4], wl
 
 
 def run_path_n(anchor, wl):
@@ -599,10 +641,11 @@ def run_path_t():
     return first_fused
 
 
-def flagship_estimator(fe_opt="LBFGS", cls=None, **kw):
-    """The estimator of phases 9 and 10: the flagship model (FE L-BFGS or
-    NEWTON 50 iterations, per-user and per-item RE L-BFGS 30), L2 1.0,
-    ESTIMATOR_ITERATIONS iterations, validation AUC, on the card."""
+def flagship_estimator(fe_opt="LBFGS", cls=None, fe=None, **kw):
+    """The estimator of phases 9 to 11: the flagship model (FE L-BFGS or
+    NEWTON 50 iterations, or the coordinate configuration ``fe``; per-user
+    and per-item RE L-BFGS 30), L2 1.0, ESTIMATOR_ITERATIONS iterations,
+    validation AUC, on the card."""
     from photon_ml_tpu_torch.estimators import (
         CoordinateConfiguration,
         FixedEffectDataConfiguration,
@@ -626,8 +669,8 @@ def flagship_estimator(fe_opt="LBFGS", cls=None, **kw):
     return (cls or GameEstimator)(
         task=TaskType.LOGISTIC_REGRESSION,
         coordinate_configurations={
-            "global": CoordinateConfiguration(FixedEffectDataConfiguration("global"),
-                                              cfg(fe_opt, 50)),
+            "global": fe or CoordinateConfiguration(FixedEffectDataConfiguration("global"),
+                                                    cfg(fe_opt, 50)),
             "per-user": CoordinateConfiguration(RandomEffectDataConfiguration("userId", "re"),
                                                 cfg("LBFGS", 30)),
             "per-item": CoordinateConfiguration(RandomEffectDataConfiguration("itemId", "re"),
@@ -977,6 +1020,241 @@ def run_model_after_fit(train_wl, train, val):
     return launches["A"] + launches["B"]
 
 
+def _syncs():
+    from photon_ml_tpu_torch.device import to_host
+    from photon_ml_tpu_torch.optimization.common import any_lane
+
+    return any_lane.syncs + to_host.transfers
+
+
+def run_elastic_net():
+    """Phase 11a: config #2's elastic-net half, linear and Poisson OWLQN
+    through GLMOptimizationProblem.run on Path T's data, fused then stock.
+    Returns the fused solves' counts, summed."""
+    import torch
+
+    from photon_ml_tpu_torch import interop
+    from photon_ml_tpu_torch.data.dataset import LabeledData
+    from photon_ml_tpu_torch.ops import fused_glm
+    from photon_ml_tpu_torch.optimization.common import OptimizerConfig
+    from photon_ml_tpu_torch.optimization.config import (
+        GLMOptimizationConfiguration,
+        RegularizationContext,
+    )
+    from photon_ml_tpu_torch.optimization.problem import GLMOptimizationProblem
+    from photon_ml_tpu_torch.types import RegularizationType, TaskType
+
+    n, d = PATH_T_SHAPE
+    wl = interop.make_glm_workload(seed=2, n_samples=n, n_features=d)
+    total = {}
+    for task, key, truth in ((TaskType.LINEAR_REGRESSION, "y_linear", wl["w"]),
+                             (TaskType.POISSON_REGRESSION, "y_poisson", wl["w"] * 0.25)):
+        problem = GLMOptimizationProblem(task=task, configuration=GLMOptimizationConfiguration(
+            OptimizerConfig(optimizer_type="OWLQN", max_iterations=100),
+            RegularizationContext(RegularizationType.ELASTIC_NET, 0.5), ELASTIC_NET_WEIGHT))
+        data = LabeledData.build(wl["X"], wl[key], dtype=torch.float32, device="cuda")
+        truth = torch.as_tensor(truth, dtype=torch.float32, device="cuda")
+        runs = []
+        for fuse in (True, False):
+            kind = "fused" if fuse else "stock"
+            with fused_glm.fused_override(fuse):
+                torch.cuda.synchronize()
+                zero_counts()
+                syncs0 = _syncs()
+                t0 = time.perf_counter()
+                model, res = problem.run(data)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                counts = read_counts()
+            coef = model.coefficients.means
+            err = float((coef - truth).abs().max())
+            zeros = int((coef == 0).sum())
+            print(f"11a elastic net {task.value} {kind}: {seconds:.4f} s, host syncs "
+                  f"{_syncs() - syncs0}, launches {counts}")
+            print(f"11a elastic net {task.value} {kind}: value {float(res.value):.6f} iterations "
+                  f"{int(res.iterations)} {res.reason_name()}, exact zeros {zeros} of {d}, "
+                  f"max |coef - generating| {err:.4f}")
+            if not bool(torch.isfinite(coef).all()) or not err <= PATH_T_RECOVERY:
+                fail(f"11a {task.value} {kind}: coefficients miss the generating ones by {err}")
+            runs.append((fuse, float(res.value), counts))
+        check_launches(f"11a {task.value}", runs, ["fused_loss_grad_sums"])
+        gap_check(f"11a {task.value} fused vs stock", runs[0][1], runs[1][1], PATH_T_AGREE)
+        total = {k: v + total.get(k, 0) for k, v in runs[0][2].items()}
+    return total
+
+
+def run_direct_pass(wl, anchor, re_iters):
+    """Phase 11b: the flagship pass with re_solver="direct", fused then
+    stock. Returns the fused run's counts."""
+    runs, _ = run_glmix("LBFGS", "11b direct", wl, re_solver="direct", order=(True, False))
+    check_launches("11b direct", runs, ["fused_loss_grad_sums"])
+    for fuse, value, _, _, re_mean in runs:
+        print(f"11b direct {'fused' if fuse else 'stock'}: mean RE iterations per bucket "
+              f"{re_mean:.2f} (phase 6 L-BFGS stock {re_iters:.2f})")
+        gap_check(f"11b direct {'fused' if fuse else 'stock'} vs L-BFGS stock", value, anchor,
+                  FLAGSHIP_QUALITY)
+    return runs[0][2]
+
+
+def run_slice6_fits(train, val):
+    """Phase 11c: three GameEstimator.fits on phase 9's split, each fused
+    then stock (the fused FE objective within 1% of the stock one).
+    (i) NEWTON FE on the shard with an intercept and shifted columns, both
+    shards standardized, RE "auto", checkpointed: run A whole, run B crashed by
+    coord.update:crash:4 and resumed, equal to A bitwise with its "auto"
+    record; (ii) OWLQN elastic-net FE, RE "direct"; (iii) LBFGSB FE in a
+    box from a constraint string. Returns the counts of the fused fits
+    ((i)'s run A, (ii) and (iii)), summed."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from photon_ml_tpu_torch import interop
+    from photon_ml_tpu_torch.estimators import CoordinateConfiguration, FixedEffectDataConfiguration
+    from photon_ml_tpu_torch.io.checkpoint import load_checkpoint
+    from photon_ml_tpu_torch.normalization import FeatureDataStatistics, NormalizationContext
+    from photon_ml_tpu_torch.ops import fused_glm
+    from photon_ml_tpu_torch.optimization.common import OptimizerConfig
+    from photon_ml_tpu_torch.optimization.config import (
+        GLMOptimizationConfiguration,
+        RegularizationContext,
+    )
+    from photon_ml_tpu_torch.optimization.constraints import build_bound_vectors
+    from photon_ml_tpu_torch.resilience import InjectedCrash, armed
+    from photon_ml_tpu_torch.types import NormalizationType, RegularizationType
+
+    def with_icpt(gi):
+        X = gi.features["global"]
+        icpt = np.hstack([np.ones((len(X), 1), X.dtype), X + np.asarray(SHARD_SHIFT, X.dtype)])
+        return dataclasses.replace(gi, features=dict(gi.features, global_icpt=icpt))
+
+    train_i, val_i = with_icpt(train), with_icpt(val)
+    norms = {shard: NormalizationContext.build(
+        NormalizationType.STANDARDIZATION,
+        FeatureDataStatistics.compute(train_i.features[shard], intercept_index=0))
+        for shard in ("global_icpt", "re")}
+    d = train.features["global"].shape[1]
+    text = json.dumps([{"name": f"f{j}", "term": "", "lowerBound": -BOX, "upperBound": BOX}
+                       for j in range(d // 2)])
+    lo, hi = build_bound_vectors(text, interop.glmix_index_maps(n_features=d)["global"])
+
+    def fe_config(opt, reg=RegularizationType.L2, alpha=None, weight=1.0):
+        return GLMOptimizationConfiguration(OptimizerConfig(optimizer_type=opt, max_iterations=50),
+                                            RegularizationContext(reg, alpha), weight)
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_phase11")
+    shutil.rmtree(work, ignore_errors=True)
+    newton = CoordinateConfiguration(FixedEffectDataConfiguration("global_icpt"),
+                                     fe_config("NEWTON"))
+    fits = {
+        "(i) NEWTON normalized, RE auto": (
+            lambda ck: flagship_estimator(fe=newton, normalization_contexts=norms,
+                                          re_solver="auto", checkpoint_directory=ck),
+            train_i, val_i),
+        "(ii) OWLQN elastic net, RE direct": (
+            lambda ck: flagship_estimator(fe=CoordinateConfiguration(
+                FixedEffectDataConfiguration("global"),
+                fe_config("OWLQN", RegularizationType.ELASTIC_NET, 0.5, ELASTIC_NET_WEIGHT)),
+                re_solver="direct"), train, val),
+        "(iii) LBFGSB in a box, RE L-BFGS": (
+            lambda ck: flagship_estimator(fe=CoordinateConfiguration(
+                FixedEffectDataConfiguration("global"), fe_config("LBFGSB"),
+                box_constraints=(lo, hi))), train, val),
+    }
+    total, results, fit_counts, fe_coefs = {}, {}, {}, {}
+    for label, (make, tr, va) in fits.items():
+        values = {}
+        for fuse in (True, False):
+            kind = "fused" if fuse else "stock"
+            with fused_glm.fused_override(fuse):
+                torch.cuda.synchronize()
+                zero_counts()
+                syncs0 = _syncs()
+                t0 = time.perf_counter()
+                est = make(os.path.join(work, "a" if fuse else "stock"))
+                best = est.select_best_model(est.fit(tr, validation_data=va))
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                counts = read_counts()
+            descent = best.descent
+            values[kind] = descent.trackers["global"][-1].final_value
+            fe = best.model.get_model("global").model.coefficients.means
+            fe_coefs[label, kind] = fe
+            print(f"11c {label} {kind}: fit {seconds:.3f} s (dataset build included), host "
+                  f"syncs {_syncs() - syncs0}, launches {counts}")
+            print(f"11c {label} {kind}: FE iterations "
+                  f"{[t.iterations for t in descent.trackers['global']]}, FE objective "
+                  f"{values[kind]:.6f}, exact zeros {int((fe == 0).sum())} of {fe.numel()}, "
+                  f"validation AUC best {best.best_metric:.6f} final "
+                  f"{descent.metrics_history[-1][2]['AUC']:.6f}, incidents {len(descent.incidents)}")
+            if descent.incidents or not math.isfinite(best.best_metric) \
+                    or not bool(torch.isfinite(fe).all()):
+                fail(f"11c {label} {kind}: a rejected update, or a non-finite model or AUC")
+            if (counts["fused_loss_grad_sums"] > 0) != fuse:
+                fail(f"11c {label} {kind}: B1 launched {counts['fused_loss_grad_sums']} times")
+            if fuse:
+                total = {k: v + total.get(k, 0) for k, v in counts.items()}
+                fit_counts[label], results[label] = counts, best
+        gap_check(f"11c {label} fused vs stock", values["fused"], values["stock"],
+                  FLAGSHIP_QUALITY)
+    first = "(i) NEWTON normalized, RE auto"
+    shifts = float(np.abs(norms["global_icpt"].shifts).max())
+    b3 = fit_counts[first]["fused_hessian_matrix"]
+    agree = float((fe_coefs[first, "fused"] - fe_coefs[first, "stock"]).abs().max())
+    print(f"11c (i): largest |shift| of the FE shard {shifts:.4f}, B3 launches {b3}, fused vs "
+          f"stock FE coefficients max abs diff {agree:.3e} (limit {SHIFTED_FE_AGREE})")
+    if not (b3 > 0 and shifts > 1.0):
+        fail("11c (i): B3 did not launch under shifts above 1")
+    if not agree <= SHIFTED_FE_AGREE:
+        fail("11c (i): fused and stock FE coefficients disagree under real shifts")
+    box = results["(iii) LBFGSB in a box, RE L-BFGS"].model.get_model("global")
+    fe = box.model.coefficients.means.cpu().numpy()
+    lo, hi = lo.astype(fe.dtype), hi.astype(fe.dtype)  # the box the solve clamps to
+    bound = int(((fe == lo) | (fe == hi)).sum())
+    print(f"11c (iii): {bound} of {d // 2} box bounds bind")
+    if not (np.all(fe >= lo) and np.all(fe <= hi)) or bound == 0:
+        fail("11c (iii): a coefficient outside its box, or no bound binds")
+
+    # (i) crashed in its first update of iteration 2, then resumed
+    make, tr, va = fits[first]
+    with fused_glm.fused_override(True):
+        try:
+            with armed("coord.update:crash:4"):
+                make(os.path.join(work, "b")).fit(tr, validation_data=va)
+            fail("11c (i): the armed crash did not fire")
+        except InjectedCrash:
+            pass
+        syncs0 = _syncs()
+        t0 = time.perf_counter()
+        est = make(os.path.join(work, "b"))
+        resumed = est.select_best_model(est.fit(tr, validation_data=va))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    whole = results[first]
+    extra = [load_checkpoint(os.path.join(work, r, "config_0"), device="cuda")["extra"]
+             for r in ("a", "b")]
+    same = (_same_tables(whole.model, resumed.model)
+            and _same_tables(whole.best_model, resumed.best_model)
+            and whole.best_metric == resumed.best_metric and extra[0] == extra[1])
+    print(f"11c (i) resumed after the crash: {seconds:.3f} s, host syncs {_syncs() - syncs0}; "
+          f"bitwise equal to the whole fit, its auto record included: {same}; auto record "
+          f"{json.dumps(extra[0])}")
+    if not same:
+        fail("11c (i): the resumed fit differs from the whole one")
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
+def run_slice6(wl, anchor, re_iters, train, val):
+    """Phase 11: L1 and elastic net, the direct RE solves, box constraints,
+    normalization and the measured "auto" on the card. Returns the kernel
+    launches of the path (11a's and 11c's fused solves, 11b's fused run)."""
+    parts = [run_elastic_net(), run_direct_pass(wl, anchor, re_iters), run_slice6_fits(train, val)]
+    return {k: sum(p.get(k, 0) for p in parts) for k in parts[0]}
+
+
 def main() -> int:
     probe()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -986,20 +1264,21 @@ def main() -> int:
 
     build()
     timing = {"b1": check_b1(), "b2": check_b2(), "b3": check_b3()}
-    b1_launches, anchor, wl = run_flagship()
+    b1_launches, anchor, re_iters, wl = run_flagship()
     path_n = run_path_n(anchor, wl)
     path_t = run_path_t()
     train_wl, train, val = run_estimator()
     b1_after_fit = run_model_after_fit(train_wl, train, val)
+    slice6 = run_slice6(wl, anchor, re_iters, train, val)
     source = "photon_ml_tpu_torch/ops/csrc/"
     kernels = []
     for key, name, src, replaces, launches in (
         ("b1", "fused_loss_grad_sums", "fused_glm.cu", "photon_ml_tpu/ops/pallas_glm.py:218",
-         b1_launches + b1_after_fit),
+         b1_launches + b1_after_fit + slice6["fused_loss_grad_sums"]),
         ("b2", "fused_hessian_vector_sums", "fused_glm.cu", "photon_ml_tpu/ops/pallas_glm.py:301",
-         path_t["fused_hessian_vector_sums"]),
+         path_t["fused_hessian_vector_sums"] + slice6["fused_hessian_vector_sums"]),
         ("b3", "fused_hessian_matrix", "fused_hess.cu", "photon_ml_tpu/ops/pallas_glm.py:393",
-         path_n["fused_hessian_matrix"]),
+         path_n["fused_hessian_matrix"] + slice6["fused_hessian_matrix"]),
     ):
         t = timing[key]
         kernels.append({

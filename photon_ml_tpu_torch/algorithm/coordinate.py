@@ -16,10 +16,15 @@ sample axis, so "adding scores to offsets" is an elementwise add.
   bucket by bucket with ``use_update_program=False``.
 - ``ModelCoordinate`` is a locked, score-only coordinate.
 
+A fixed effect takes per-feature box bounds (``box_constraints``, refused
+together with normalization as in the reference); a random effect takes
+per-entity normalization and ``re_solver`` "lbfgs", "direct" or "auto",
+the last measured once per coordinate and carried across a resume through
+``re_solver_stats`` / ``seed_solver_decision``.
+
 Not ported yet, each raising with its ROADMAP item: down-sampling (A14),
-box constraints and ``re_solver`` other than "lbfgs" (A7b), reduced storage
-precision, the working set and the active-set update (A13), and the
-compiled-program audit hook (A13, analysis).
+reduced storage precision, the working set and the active-set update (A13),
+and the compiled-program audit hook (A13, analysis).
 """
 
 from __future__ import annotations
@@ -32,8 +37,11 @@ import torch
 from photon_ml_tpu_torch.algorithm.random_effect import (
     LazyRandomEffectTracker,
     RandomEffectTracker,
+    bucket_shape,
     build_l2_rows,
     check_trainable,
+    measure_auto_solvers,
+    precompute_norm_tables,
     train_random_effect,
 )
 from photon_ml_tpu_torch.data.dataset import FixedEffectDataset
@@ -47,6 +55,10 @@ from photon_ml_tpu_torch.models.game import (
 from photon_ml_tpu_torch.models.glm import model_class_for_task
 from photon_ml_tpu_torch.normalization import NO_NORMALIZATION, NormalizationContext
 from photon_ml_tpu_torch.optimization.config import GLMOptimizationConfiguration
+from photon_ml_tpu_torch.optimization.normal_equations import (
+    AutoSolverDecision,
+    validate_re_solver,
+)
 from photon_ml_tpu_torch.optimization.problem import GLMOptimizationProblem
 from photon_ml_tpu_torch.optimization.solver_cache import (
     check_precision,
@@ -157,14 +169,19 @@ class FixedEffectCoordinate(Coordinate):
     normalization: NormalizationContext = NO_NORMALIZATION
     variance_computation: VarianceComputationType = VarianceComputationType.NONE
     down_sampler: Optional[object] = None
+    # (lower[D], upper[D]) per-feature box bounds (constraint maps), enforced
+    # by the optimizers (LBFGS projection, LBFGSB, TRON, NEWTON)
     box_constraints: Optional[tuple] = None
 
     def __post_init__(self):
         self.task = TaskType(self.task)
         if self.down_sampler is not None:
             raise NotImplementedError("down-sampling is not ported yet: ROADMAP A14")
-        if self.box_constraints is not None:
-            raise NotImplementedError("box-constrained solves are not ported yet: ROADMAP A7b")
+        if self.box_constraints is not None and not self.normalization.is_identity:
+            # the reference rejects this combination outright (Params.scala:211-214):
+            # bounds are specified in original feature space, solves run in
+            # normalized space, and the clamp cannot be guaranteed in both
+            raise ValueError("Box constraints and normalization cannot be combined")
         self._problem = GLMOptimizationProblem(
             task=self.task,
             configuration=self.configuration,
@@ -189,11 +206,14 @@ class FixedEffectCoordinate(Coordinate):
         (Coordinate.scala:60-63 / FixedEffectCoordinate.updateModel:91-147).
         The tracker's scalars stay on the device."""
         data = self.dataset.data.add_scores_to_offsets(partial_scores)
+        lower, upper = self.box_constraints or (None, None)
         glm, result = self._problem.run(
             data,
             self.prepare_initial_model(initial_model).model
             if initial_model is not None
             else None,
+            lower_bounds=lower,
+            upper_bounds=upper,
         )
         tracker = FixedEffectOptimizationTracker(
             convergence_reason=result.convergence_reason,
@@ -231,15 +251,19 @@ class RandomEffectCoordinate(Coordinate):
 
     def __post_init__(self):
         self.task = TaskType(self.task)
-        check_trainable(self.task, self.configuration, self.normalization)
-        if self.re_solver != "lbfgs":
-            raise NotImplementedError(f"re_solver={self.re_solver!r} is not ported yet: ROADMAP A7b")
+        check_trainable(self.task, self.configuration)
+        self.re_solver = validate_re_solver(self.re_solver, bool(self.configuration.l1_weight))
         check_precision(self.precision)
         if self.working_set_rows is not None:
             raise NotImplementedError(
                 "the random-effect working set is not ported yet: ROADMAP A13"
             )
-        self._l2_rows = None
+        # the update program's iteration-invariant inputs, built at first use
+        self._static = None
+        # re_solver="auto": the measured record, filled by the first update's
+        # probe or seeded from a restored checkpoint, so that a resumed run
+        # never re-measures against warm tables
+        self._auto_decision: Optional[AutoSolverDecision] = None
 
     def initialize_model(self) -> RandomEffectModel:
         ds = self.dataset
@@ -259,19 +283,46 @@ class RandomEffectCoordinate(Coordinate):
         # differently ordered datasets)
         return model.aligned_to(self.dataset)
 
+    def _solver_plan(self, offsets_plus_scores: Tensor, initial_model):
+        """``re_solver`` for this update: an explicit string passes through;
+        "auto" becomes the per-bucket plan of the measured record, probed
+        on this update's inputs the first time (measure_auto_solvers)."""
+        if self.re_solver != "auto":
+            return self.re_solver
+        if self._auto_decision is None:
+            self._auto_decision = measure_auto_solvers(
+                self.dataset, self.task, self.configuration, offsets_plus_scores,
+                initial_model=initial_model, normalization=self.normalization,
+                per_entity_reg_weights=self.per_entity_reg_weights,
+            )
+        return tuple(self._auto_decision.choice_for(*bucket_shape(b)) for b in self.dataset.buckets)
+
+    def re_solver_stats(self) -> Optional[dict]:
+        """The measured "auto" record (dict form), None until the first
+        update measured it or a restore seeded it. It rides the checkpoint
+        manifest's ``extra``; the fingerprint pins only the string "auto"."""
+        return None if self._auto_decision is None else self._auto_decision.to_dict()
+
+    def seed_solver_decision(self, d: Optional[dict]) -> None:
+        """Restore a measured "auto" record (``re_solver_stats`` form), so a
+        resumed run replays the original choices instead of re-measuring."""
+        if d is not None:
+            self._auto_decision = AutoSolverDecision.from_dict(d)
+
     def update_model(
         self, initial_model: Optional[RandomEffectModel], partial_scores: Tensor
     ) -> tuple[RandomEffectModel, RandomEffectTracker]:
+        offsets_plus_scores = self.base_offsets + partial_scores
         return train_random_effect(
             self.dataset,
             self.task,
             self.configuration,
-            self.base_offsets + partial_scores,
+            offsets_plus_scores,
             initial_model=initial_model,
             normalization=self.normalization,
             variance_computation=self.variance_computation,
             per_entity_reg_weights=self.per_entity_reg_weights,
-            re_solver=self.re_solver,
+            re_solver=self._solver_plan(offsets_plus_scores, initial_model),
         )
 
     def update_model_active(self, initial_model, partial_scores, active_mask):
@@ -295,20 +346,25 @@ class RandomEffectCoordinate(Coordinate):
         ds = self.dataset
         dtype = ds.sample_vals.dtype
         variance = VarianceComputationType(self.variance_computation)
-        if self._l2_rows is None:  # invariant across descent iterations
-            self._l2_rows = build_l2_rows(ds, self.configuration.l2_weight,
-                                          self.per_entity_reg_weights, dtype, ds.n_entities)
+        if self._static is None:  # invariant across descent iterations
+            self._static = (
+                build_l2_rows(ds, self.configuration.l2_weight, self.per_entity_reg_weights,
+                              dtype, ds.n_entities),
+                precompute_norm_tables(ds, self.normalization, dtype),
+            )
+        l2_rows, norm_tables = self._static
+        if initial_model is None:
+            initial_model = self.initialize_model()
+        offsets_plus_scores = self.base_offsets + partial_scores
         program = re_coordinate_update_program(
             self.task,
             self.configuration.optimizer_config,
             bool(self.configuration.l1_weight),
             variance,
             ds.n_entities,
-            self.re_solver,
+            self._solver_plan(offsets_plus_scores, initial_model),
             self.precision,
         )
-        if initial_model is None:
-            initial_model = self.initialize_model()
         aligned = initial_model.aligned_to(ds)
         coeffs_prev = aligned.coeffs.to(dtype)
         var_prev = None
@@ -322,10 +378,11 @@ class RandomEffectCoordinate(Coordinate):
             coeffs_prev,
             prev_score,
             var_prev,
-            self.base_offsets + partial_scores,
-            self._l2_rows,
+            offsets_plus_scores,
+            l2_rows,
             self.configuration.l1_weight or 0.0,
             ds.buckets,
+            norm_tables,
             ds.scoring_view(),
         )
         model = RandomEffectModel(

@@ -23,7 +23,9 @@ of the loop goes through ``device.to_host`` and is counted there.
 models, the best-model snapshot and the incident history after every
 completed iteration, and a rerun with the same checkpointer resumes from the
 last completed one. Training scores are recomputed from the restored models,
-so a resumed run is bit-identical to an uninterrupted one.
+and the measured ``re_solver="auto"`` records ride the manifest's ``extra``
+and are seeded back on restore, so a resumed run is bit-identical to an
+uninterrupted one.
 
 Not ported yet: active-set delta updates (A13, continuous training) raise.
 """
@@ -183,6 +185,44 @@ def _flush_guards(pending: list, incidents: list, models: dict) -> None:
         incidents.append(_divergence(p.coordinate_id, p.iteration, cause))
 
 
+class AutoRecordsProvider:
+    """The descent loop's own ``extra_state_provider``: the coordinates'
+    measured ``re_solver="auto"`` records, for the manifest's ``extra``."""
+
+    def __init__(self, coordinates: Mapping[str, Coordinate]):
+        self.coordinates = coordinates
+
+    def __call__(self) -> Optional[dict]:
+        auto = {}
+        for cid, coord in self.coordinates.items():
+            stats = getattr(coord, "re_solver_stats", None)
+            rec = None if stats is None else stats()
+            if rec is not None:
+                auto[cid] = rec
+        return {"re_solver_auto": auto} if auto else None
+
+
+def install_extra_state(checkpointer, coordinates: Mapping[str, Coordinate]) -> None:
+    """Have every save carry the coordinates' measured ``re_solver="auto"``
+    records in the manifest's ``extra``, unless the caller installed a
+    provider of its own (an :class:`AutoRecordsProvider` from an earlier run
+    is replaced). The fingerprint pins the string "auto", not the
+    measurement."""
+    provider = getattr(checkpointer, "extra_state_provider", False)
+    if provider is None or isinstance(provider, AutoRecordsProvider):
+        checkpointer.extra_state_provider = AutoRecordsProvider(coordinates)
+
+
+def seed_extra_state(restored: dict, coordinates: Mapping[str, Coordinate]) -> None:
+    """Seed each coordinate's measured "auto" record from a restored
+    manifest's ``extra``, so a resumed run replays the original choices
+    bitwise instead of re-measuring against restored warm tables."""
+    for cid, rec in ((restored.get("extra") or {}).get("re_solver_auto") or {}).items():
+        coord = coordinates.get(cid)
+        if coord is not None and hasattr(coord, "seed_solver_decision"):
+            coord.seed_solver_decision(rec)
+
+
 def restore_descent_state(checkpointer, coordinate_ids: list, n_iterations: int,
                           initial_models=None):
     """(start iteration, initial models, restored state or None, incidents)
@@ -288,9 +328,12 @@ def run_coordinate_descent(
 
     start_iteration, restored, incidents = 0, None, []
     if checkpointer is not None:
+        install_extra_state(checkpointer, coordinates)
         start_iteration, initial_models, restored, incidents = restore_descent_state(
             checkpointer, coordinate_ids, n_iterations, initial_models
         )
+        if restored is not None:
+            seed_extra_state(restored, coordinates)
 
     # --- initialize models and their training/validation scores -----------------
     models: dict[str, object] = {}

@@ -9,10 +9,19 @@ batched solve over a dense [E, S, K] block, one lane per entity
 buckets one after the other (``solver_cache.solve_buckets``) and reads the
 per-entity convergence stats to the host once, after the last bucket.
 
-Not ported yet, each raising with its ROADMAP item: per-entity
-normalization (A8), the active-set delta update (A13, continuous training),
-the measured ``re_solver="auto"`` probe (A7b) and the per-entity gradient
-norms of the active-set screen (A13).
+Warm start and normalization: blocks are materialized in the (optionally)
+normalized space; initial models arrive in the original space and are
+converted per entity with factor, shift and intercept vectors gathered
+through the projection table, and solutions are converted back, so the
+stored RandomEffectModel is always in the original feature space.
+
+``re_solver="auto"`` is measured: :func:`measure_auto_solvers` probes both
+bucket solvers once per bucket shape and records the choice
+(normal_equations.AutoSolverDecision).
+
+Not ported yet, each raising with its ROADMAP item: the active-set delta
+update (A13, continuous training) and the per-entity gradient norms of the
+active-set screen (A13).
 """
 
 from __future__ import annotations
@@ -28,7 +37,12 @@ from photon_ml_tpu_torch.device import to_host
 from photon_ml_tpu_torch.function.losses import loss_for_task
 from photon_ml_tpu_torch.models.game import RandomEffectModel
 from photon_ml_tpu_torch.optimization.config import GLMOptimizationConfiguration
-from photon_ml_tpu_torch.optimization.solver_cache import re_bucket_solver, solve_buckets
+from photon_ml_tpu_torch.optimization.normal_equations import AutoSolverDecision
+from photon_ml_tpu_torch.optimization.solver_cache import (
+    bucket_solves,
+    re_bucket_solver,
+    solve_buckets,
+)
 from photon_ml_tpu_torch.types import (
     ConvergenceReason,
     OptimizerType,
@@ -139,19 +153,134 @@ def build_l2_rows(
     return torch.as_tensor(l2_table).to(device=dataset.proj_indices.device, dtype=dtype)
 
 
-def check_trainable(task: TaskType, configuration: GLMOptimizationConfiguration,
-                    normalization) -> None:
+def gather_norm_vectors(normalization, proj: Tensor, dtype):
+    """Per-entity (factors [E, K], shifts [E, K], intercept mask [E, K])
+    gathered from the global normalization vectors through the projection
+    table; padding slots get factor 1 and shift 0. An entity whose
+    projection lacks the intercept column cannot carry a shift between the
+    spaces, so it raises (the JAX package's ``_gather_norm_vectors``)."""
+    if normalization is None or normalization.is_identity:
+        return None, None, None
+    pad = proj < 0
+    safe = torch.clamp_min(proj, 0).long()
+    one = torch.ones((), dtype=dtype, device=proj.device)
+    factors = shifts = icpt_mask = None
+    if normalization.factors is not None:
+        f = torch.as_tensor(np.asarray(normalization.factors)).to(device=proj.device, dtype=dtype)
+        factors = torch.where(pad, one, f[safe])
+    if normalization.shifts is not None:
+        sh = torch.as_tensor(np.asarray(normalization.shifts)).to(device=proj.device, dtype=dtype)
+        shifts = torch.where(pad, torch.zeros_like(one), sh[safe])
+    if normalization.intercept_index is not None:
+        icpt_mask = (proj == normalization.intercept_index).to(dtype)
+    if shifts is not None:
+        if icpt_mask is None:
+            raise ValueError(
+                "Normalization with shifts requires intercept_index so per-entity "
+                "coefficients can be converted between spaces"
+            )
+        missing = np.flatnonzero(~to_host(icpt_mask.any(dim=-1))[0].numpy())
+        if len(missing):
+            raise ValueError(
+                f"{len(missing)} entities lack the intercept column in their "
+                "projection; cannot apply shift normalization (ensure the intercept "
+                "survives feature selection, e.g. pass intercept_index to the "
+                "dataset builder)"
+            )
+    return factors, shifts, icpt_mask
+
+
+def precompute_norm_tables(dataset: RandomEffectDataset, normalization, dtype) -> tuple:
+    """Per-bucket (factors, shifts, intercept mask) triples, gathered once per
+    (dataset, normalization); None per bucket without normalization."""
+    if normalization is None or normalization.is_identity:
+        return tuple(None for _ in dataset.buckets)
+    return tuple(
+        gather_norm_vectors(normalization,
+                            dataset.proj_indices[b.entity_rows.long(), : b.X.shape[2]], dtype)
+        for b in dataset.buckets
+    )
+
+
+def check_trainable(task: TaskType, configuration: GLMOptimizationConfiguration) -> None:
     """What every random-effect update refuses up front: a second-order
-    optimizer on a loss without a Hessian, and per-entity normalization,
-    which the port does not carry yet."""
+    optimizer on a loss without a Hessian."""
     loss = loss_for_task(TaskType(task))
     opt_type = OptimizerType(configuration.optimizer_config.optimizer_type)
     if opt_type in (OptimizerType.TRON, OptimizerType.NEWTON) and not loss.has_hessian:
         raise ValueError(f"{opt_type.value} requires a twice-differentiable loss")
-    if normalization is not None and not normalization.is_identity:
-        raise NotImplementedError(
-            "per-entity normalization of random effects is not ported yet: ROADMAP A8"
-        )
+
+
+def bucket_shape(bucket) -> tuple:
+    """A bucket's (S, K) shape class."""
+    return int(bucket.X.shape[1]), int(bucket.X.shape[2])
+
+
+_AUTO_CLEAN_REASONS = (
+    int(ConvergenceReason.FUNCTION_VALUES_CONVERGED),
+    int(ConvergenceReason.GRADIENT_CONVERGED),
+)
+
+
+def measure_auto_solvers(
+    dataset: RandomEffectDataset,
+    task: TaskType,
+    configuration: GLMOptimizationConfiguration,
+    offsets_plus_scores: Tensor,
+    *,
+    initial_model: Optional[RandomEffectModel] = None,
+    normalization=None,
+    per_entity_reg_weights=None,
+    dtype=None,
+) -> AutoSolverDecision:
+    """The one-shot probe behind ``re_solver="auto"``: both bucket solvers
+    run once per bucket SHAPE on the actual first-pass inputs (warm start,
+    offsets-plus-scores, per-entity L2, normalization space), and each
+    one's mean iteration count over the bucket's lanes is recorded
+    (normal_equations.AutoSolverDecision). The first bucket of each shape
+    goes through ``solve_buckets``, the pass's own bucket loop, on a scratch
+    copy of the table, with variances off; the outputs are discarded and
+    the pass re-runs under the chosen plan. An L1 configuration returns an
+    empty record (every shape keeps the configured optimizer). One host
+    read for the whole probe."""
+    task = TaskType(task)
+    decision = AutoSolverDecision()
+    if configuration.l1_weight:
+        return decision
+    E = dataset.n_entities
+    if dtype is None:
+        dtype = dataset.sample_vals.dtype
+    if initial_model is None:
+        coeffs = torch.zeros((E, dataset.max_k), dtype=dtype, device=dataset.proj_indices.device)
+    else:
+        coeffs = initial_model.aligned_to(dataset).coeffs.to(dtype)
+    l2_rows = build_l2_rows(dataset, configuration.l2_weight, per_entity_reg_weights, dtype, E)
+    norm_tables = precompute_norm_tables(dataset, normalization, dtype)
+    first = {}
+    for i, bucket in enumerate(dataset.buckets):
+        first.setdefault(bucket_shape(bucket), i)
+    buckets = [dataset.buckets[i] for i in first.values()]
+    tables = [norm_tables[i] for i in first.values()]
+    solvers = ("lbfgs", "direct")
+    parts = []
+    for name in solvers:
+        solve = re_bucket_solver(task, configuration.optimizer_config, False,
+                                 VarianceComputationType.NONE, name)
+        reasons, iters = solve_buckets(solve, buckets, coeffs.clone(), None, offsets_plus_scores,
+                                       l2_rows, 0.0, tables)
+        parts += [*reasons, *iters]
+    host = iter(t.numpy() for t in to_host(*parts))
+    measured = {}
+    for name in solvers:
+        reasons_h = [next(host) for _ in buckets]
+        iters_h = [next(host) for _ in buckets]
+        measured[name] = [(float(it.mean()), bool(np.isin(r, _AUTO_CLEAN_REASONS).all()))
+                          for r, it in zip(reasons_h, iters_h)]
+    for j, (S, K) in enumerate(first):
+        decision.record(S, K, lbfgs_iters=measured["lbfgs"][j][0],
+                        direct_iters=measured["direct"][j][0],
+                        direct_clean=measured["direct"][j][1])
+    return decision
 
 
 def train_random_effect(
@@ -165,7 +294,7 @@ def train_random_effect(
     variance_computation: VarianceComputationType = VarianceComputationType.NONE,
     dtype=None,
     per_entity_reg_weights=None,
-    re_solver: str = "lbfgs",
+    re_solver="lbfgs",
 ) -> tuple[RandomEffectModel, RandomEffectTracker]:
     """Fit one GLM per entity over all buckets, one batched solve per bucket.
 
@@ -173,11 +302,13 @@ def train_random_effect(
     coordinates' scores (the reference's addScoresToOffsets join becomes a
     gather through each bucket's sample ids). ``per_entity_reg_weights``
     ({entity_id: l2} or an [E] array) overrides the configuration's L2
-    weight per entity. The tracker's stats are read to the host once, after
-    every bucket has been solved.
+    weight per entity. ``re_solver`` is "lbfgs", "direct", "auto" or a
+    per-bucket tuple of "lbfgs"/"direct" (the measured "auto" plan). The
+    tracker's stats are read to the host once, after every bucket has been
+    solved.
     """
     task = TaskType(task)
-    check_trainable(task, configuration, normalization)
+    check_trainable(task, configuration)
     variance_computation = VarianceComputationType(variance_computation)
     E, K_all = dataset.n_entities, dataset.max_k
     if dtype is None:
@@ -193,11 +324,12 @@ def train_random_effect(
         else None
     )
     l2_rows = build_l2_rows(dataset, configuration.l2_weight, per_entity_reg_weights, dtype, E)
-    solve = re_bucket_solver(task, configuration.optimizer_config,
-                             bool(configuration.l1_weight), variance_computation, re_solver)
-    reasons, iters = solve_buckets(solve, dataset.buckets, coeffs, variances,
+    solves = bucket_solves(task, configuration.optimizer_config, bool(configuration.l1_weight),
+                           variance_computation, re_solver, len(dataset.buckets))
+    reasons, iters = solve_buckets(solves, dataset.buckets, coeffs, variances,
                                    offsets_plus_scores, l2_rows,
-                                   configuration.l1_weight or 0.0)
+                                   configuration.l1_weight or 0.0,
+                                   precompute_norm_tables(dataset, normalization, dtype))
     tracker = RandomEffectTracker.from_parts(reasons, iters)
     model = RandomEffectModel(
         re_type=dataset.re_type,
@@ -217,11 +349,6 @@ def train_random_effect_delta(*args, **kwargs):
     raise NotImplementedError(
         "active-set random-effect updates are not ported yet: ROADMAP A13 (continuous/)"
     )
-
-
-def measure_auto_solvers(*args, **kwargs):
-    """The measured probe behind ``re_solver="auto"``."""
-    raise NotImplementedError('re_solver="auto" is not ported yet: ROADMAP A7b')
 
 
 def random_effect_gradient_norms(*args, **kwargs):

@@ -10,9 +10,9 @@ full sample axis scores the coordinate without joins.
 The build is host numpy, the same as the JAX package's, and only its
 tensors are placed on ``device``. The port has the options the flagship
 pass and validation use, among them ``scoring_only`` (the scoring view
-alone, no training buckets); reservoir caps, lower-bound filtering, Pearson
-selection, normalization, projectors and entity ordering raise
-``NotImplementedError`` (ROADMAP A8).
+alone, no training buckets) and per-feature normalization of the training
+blocks; reservoir caps, lower-bound filtering, Pearson selection,
+projectors and entity ordering raise ``NotImplementedError`` (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -208,15 +208,18 @@ def build_random_effect_dataset(
 
     ``scoring_only`` skips the training buckets (validation and transform
     datasets need the per-sample scoring view alone) and needs no labels.
-    ``intercept_index`` and ``seed`` only serve options that wait for a later
-    slice; they are accepted so that calls read as in the JAX package.
+    ``normalization`` is applied to the materialized training blocks,
+    x' = (x - shift) * factor over every valid (sample, observed column)
+    cell, zeros included; the scoring view keeps raw values, and the
+    coordinate carries coefficients between the spaces. ``intercept_index``
+    and ``seed`` only serve options that wait for a later slice; they are
+    accepted so that calls read as in the JAX package.
     """
     device = resolve_device(device)
     unported = {
         "active_data_upper_bound": active_data_upper_bound is not None,
         "active_data_lower_bound": active_data_lower_bound != 1,
         "features_max": features_max is not None,
-        "normalization": normalization is not None,
         "projector": projector is not None,
         "entity_order": entity_order is not None,
         "exclude_entities": bool(exclude_entities),
@@ -343,6 +346,14 @@ def build_random_effect_dataset(
     def put(a, dt=None):
         return torch.as_tensor(a).to(device=device, dtype=dt)
 
+    norm_factors = None
+    norm_shifts = None
+    if normalization is not None:
+        if normalization.factors is not None:
+            norm_factors = np.asarray(normalization.factors, dtype=np.float64)
+        if normalization.shifts is not None:
+            norm_shifts = np.asarray(normalization.shifts, dtype=np.float64)
+
     buckets = []
     for b, ((s_pad, k_pad), members) in enumerate(sorted_keys):
         eb = len(members)
@@ -363,7 +374,21 @@ def build_random_effect_dataset(
             Xb.shape,
         )
         gv = X.data[act_nnz_idx[ni]].astype(np.float64)
+        if norm_factors is not None:
+            gv = gv * norm_factors[X.indices[act_nnz_idx[ni]]]
         Xb += np.bincount(flat, weights=gv, minlength=Xb.size).reshape(Xb.shape)
+        if norm_shifts is not None:
+            # x' = x*factor - shift*factor: the shift term reaches every valid
+            # (sample, observed column) cell, zeros included
+            base = np.zeros((eb, k_pad))
+            for bi, i in enumerate(members):
+                cols = col_of[i]
+                sh = -norm_shifts[cols]
+                if norm_factors is not None:
+                    sh = sh * norm_factors[cols]
+                base[bi, : len(cols)] = sh
+            row_valid = np.arange(s_pad)[None, :] < lens[members][:, None]
+            Xb += base[:, None, :] * row_valid[:, :, None]
         buckets.append(
             EntityBucket(
                 entity_rows=put(members.astype(np.int32)),

@@ -19,10 +19,12 @@ estimators/GameEstimator.scala:55-801):
 
 The JAX estimator's ``mesh`` becomes ``device``: like every entry point of
 the port it is ``"cuda"`` by default and raises where there is no CUDA,
-unless the caller names the CPU. Knobs of later slices raise
-``NotImplementedError`` naming their ROADMAP item: bf16 storage and
-normalization (A8), reduced RE precision and the working set (A13),
-down-sampling (A14), L1/elastic net and box constraints (A7b).
+unless the caller names the CPU. ``normalization_contexts`` (per feature
+shard), L1 and elastic net (OWLQN), box constraints and ``re_solver`` in
+{"lbfgs", "direct", "auto"} are accepted as in the JAX estimator. Knobs of
+later slices raise ``NotImplementedError`` naming their ROADMAP item: bf16
+storage (A8), reduced RE precision and the working set (A13), and
+down-sampling (A14).
 
 ``checkpoint_directory`` saves every ``checkpoint_interval``-th iteration of
 sweep configuration i under ``<checkpoint_directory>/config_<i>``
@@ -80,12 +82,12 @@ from photon_ml_tpu_torch.evaluation.evaluators import (
 )
 from photon_ml_tpu_torch.io.checkpoint import CoordinateDescentCheckpointer
 from photon_ml_tpu_torch.models.game import FixedEffectModel, GameModel, RandomEffectModel
-from photon_ml_tpu_torch.normalization import NO_NORMALIZATION
+from photon_ml_tpu_torch.normalization import NO_NORMALIZATION, NormalizationContext
 from photon_ml_tpu_torch.optimization.config import GLMOptimizationConfiguration
 from photon_ml_tpu_torch.optimization.precision import resolve_precision
 from photon_ml_tpu_torch.optimization.solver_cache import check_precision
 from photon_ml_tpu_torch.parallel.game import build_sharded_game_data
-from photon_ml_tpu_torch.types import RegularizationType, TaskType, VarianceComputationType
+from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
 
 logger = logging.getLogger(__name__)
 
@@ -128,7 +130,8 @@ class GameEstimator:
     task: TaskType
     coordinate_configurations: Mapping[str, CoordinateConfiguration]
     n_iterations: int = 1
-    normalization_contexts: Optional[Mapping[str, object]] = None
+    # feature shard id -> NormalizationContext; shards absent are not normalized
+    normalization_contexts: Optional[Mapping[str, NormalizationContext]] = None
     variance_computation: VarianceComputationType = VarianceComputationType.NONE
     validation_evaluators: Sequence = ()
     partial_retrain_locked_coordinates: Sequence[str] = ()
@@ -168,20 +171,9 @@ class GameEstimator:
         check_precision(self.re_precision)
         if self.re_working_set_rows is not None:
             raise _not_ported("the random-effect working set (re_working_set_rows)", "A13")
-        if self.re_solver != "lbfgs":
-            raise _not_ported(f"re_solver={self.re_solver!r}", "A7b")
-        if self.normalization_contexts and any(
-            not n.is_identity for n in self.normalization_contexts.values()
-        ):
-            raise _not_ported("feature normalization (normalization_contexts)", "A8")
         for cid, cfg in self.coordinate_configurations.items():
             if 0.0 < cfg.down_sampling_rate < 1.0:
                 raise _not_ported(f"down-sampling (coordinate {cid!r})", "A14")
-            if cfg.box_constraints is not None:
-                raise _not_ported(f"box constraints (coordinate {cid!r})", "A7b")
-            reg = cfg.optimization_config.regularization_context.regularization_type
-            if reg not in (RegularizationType.NONE, RegularizationType.L2):
-                raise _not_ported(f"{reg.value} regularization (coordinate {cid!r})", "A7b")
         locked = set(self.partial_retrain_locked_coordinates)
         unknown = locked - set(self.coordinate_configurations)
         if unknown:
@@ -197,6 +189,11 @@ class GameEstimator:
         return None
 
     # ------------------------------------------------------------- data prep
+
+    def _normalization_for(self, shard: str) -> NormalizationContext:
+        if not self.normalization_contexts:
+            return NO_NORMALIZATION
+        return self.normalization_contexts.get(shard, NO_NORMALIZATION)
 
     def prepare_training_datasets(self, data: GameInput) -> dict[str, object]:
         """GameInput -> per-coordinate datasets on ``device``
@@ -219,6 +216,7 @@ class GameEstimator:
                     feature_shard_id=dc.feature_shard_id,
                 )
             elif isinstance(dc, RandomEffectDataConfiguration):
+                norm = self._normalization_for(dc.feature_shard_id)
                 X = as_csr(data.shard(dc.feature_shard_id))
                 datasets[cid] = build_random_effect_dataset(
                     X,
@@ -230,6 +228,8 @@ class GameEstimator:
                     features_max=dc.features_max,
                     labels=data.labels,
                     weights=data.weights,
+                    intercept_index=None if norm.is_identity else norm.intercept_index,
+                    normalization=None if norm.is_identity else norm,
                     dtype=self.dtype,
                     projector=self._projector_for(dc, X.shape[1]),
                     device=self.device,
@@ -296,14 +296,16 @@ class GameEstimator:
             if isinstance(initial_model, FixedEffectModel):
                 initial_model = pad_fixed_effect_model(initial_model, dataset)
             return ModelCoordinate(coordinate_id=cid, dataset=dataset, model=initial_model)
+        norm = self._normalization_for(cfg.data_config.feature_shard_id)
         if isinstance(cfg.data_config, FixedEffectDataConfiguration):
             return FixedEffectCoordinate(
                 coordinate_id=cid,
                 dataset=dataset,
                 task=self.task,
                 configuration=opt_config,
-                normalization=NO_NORMALIZATION,
+                normalization=norm,
                 variance_computation=self.variance_computation,
+                box_constraints=cfg.box_constraints,
             )
         return RandomEffectCoordinate(
             coordinate_id=cid,
@@ -311,6 +313,7 @@ class GameEstimator:
             task=self.task,
             configuration=opt_config,
             base_offsets=base_offsets,
+            normalization=None if norm.is_identity else norm,
             variance_computation=self.variance_computation,
             per_entity_reg_weights=cfg.per_entity_reg_weights,
             use_update_program=self.re_update_program,

@@ -621,6 +621,12 @@ class CoordinateDescentCheckpointer:
 
     ``save_seconds`` and ``restore_seconds`` list the wall time of each save
     and restore.
+
+    ``extra_state_provider`` (optional zero-argument callable returning a
+    JSON-serializable dict or None) is polled at every save and rides the
+    manifest's ``extra`` key: run state next to the fingerprint that a
+    resume needs to replay bitwise, such as the measured
+    ``re_solver="auto"`` decisions.
     """
 
     def __init__(
@@ -631,6 +637,7 @@ class CoordinateDescentCheckpointer:
         fingerprint: Optional[str] = None,
         keep_generations: int = DEFAULT_KEEP_GENERATIONS,
         device="cuda",
+        extra_state_provider=None,
     ):
         if interval < 1:
             raise ValueError(f"checkpoint interval must be >= 1, got {interval}")
@@ -640,6 +647,7 @@ class CoordinateDescentCheckpointer:
         self.device = resolve_device(device)
         self.fingerprint = fingerprint
         self.keep_generations = int(keep_generations)
+        self.extra_state_provider = extra_state_provider
         self.restore_incidents: list = []
         self.save_seconds: list = []
         self.restore_seconds: list = []
@@ -667,6 +675,7 @@ class CoordinateDescentCheckpointer:
             fingerprint=self.fingerprint,
             incidents=incidents,
             keep_generations=self.keep_generations,
+            extra_state=None if self.extra_state_provider is None else self.extra_state_provider(),
         )
         self.save_seconds.append(time.perf_counter() - t0)
         return True

@@ -25,6 +25,13 @@ from photon_ml_tpu_torch.types import ModelType, TaskType
 Tensor = torch.Tensor
 
 
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
 def row_sum(terms: Tensor) -> Tensor:
     """Sum over the last axis in a fixed pairwise order: the axis is padded
     with zeros to a power of two and halved by elementwise adds. Each row's
@@ -34,9 +41,7 @@ def row_sum(terms: Tensor) -> Tensor:
     pads requests in both axes, and this is what keeps its scores equal to
     the eager scorer's bit for bit."""
     width = terms.shape[-1]
-    p = 1
-    while p < width:
-        p *= 2
+    p = _pow2_at_least(width)
     if p != width:
         terms = torch.nn.functional.pad(terms, (0, p - width))
     while p > 1:
@@ -45,13 +50,32 @@ def row_sum(terms: Tensor) -> Tensor:
     return terms[..., 0]
 
 
+# Largest [rows, padded D] product one fixed-effect scoring chunk may hold.
+FE_SCORE_CHUNK_BYTES = 64 << 20
+
+
+def score_chunk_rows(n_cols: int, itemsize: int) -> int:
+    """Rows per chunk of :func:`fixed_effect_view_score`: the most rows whose
+    product, padded to :func:`row_sum`'s power-of-two width, fits in
+    ``FE_SCORE_CHUNK_BYTES`` (one row when a single row is wider than that)."""
+    return max(1, FE_SCORE_CHUNK_BYTES // (_pow2_at_least(max(n_cols, 1)) * itemsize))
+
+
 def fixed_effect_view_score(values: Tensor, means: Tensor) -> Tensor:
     """[N] fixed-effect scores of a dense [N, D] block: the row-wise dot in
     :func:`row_sum`'s fixed order, in the promoted dtype of the two inputs.
     Validation, ``GameTransformer`` and the serving engine score through it;
     training keeps the GEMV (``DenseDesignMatrix.matvec``), whose per-row
-    bits change with the row count on CUDA."""
-    return row_sum(values * means)
+    bits change with the row count on CUDA. The product is formed in row
+    chunks of at most ``FE_SCORE_CHUNK_BYTES`` (:func:`score_chunk_rows`), never over
+    the whole block; ``row_sum`` is row-independent, so the bits do not
+    depend on the chunking."""
+    itemsize = torch.empty((), dtype=torch.promote_types(values.dtype, means.dtype)).element_size()
+    rows = score_chunk_rows(values.shape[-1], itemsize)
+    if values.shape[0] <= rows:
+        return row_sum(values * means)
+    return torch.cat([row_sum(values[i : i + rows] * means)
+                      for i in range(0, values.shape[0], rows)])
 
 
 def random_effect_view_score(coeffs: Tensor, entity_rows: Tensor, local_cols: Tensor,

@@ -17,7 +17,7 @@ device-to-host sync per trip; :func:`any_lane` is that question, and
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -48,13 +48,20 @@ class OptimizerConfig:
 
 
 class OptResult(NamedTuple):
-    """Terminal optimizer state (per-iteration tracking is not ported yet)."""
+    """Terminal optimizer state (+ optional per-iteration tracking tensors)."""
 
     coefficients: Tensor
     value: Tensor
     gradient: Tensor
     iterations: Tensor  # int - iterations actually performed
     convergence_reason: Tensor  # int - ConvergenceReason code
+    # [..., max_iter + 1] objective values and gradient norms, NaN-padded
+    tracked_values: Optional[Tensor] = None
+    tracked_grad_norms: Optional[Tensor] = None
+
+    def first_lane(self) -> "OptResult":
+        """The result of a one-lane solve without its lane axis."""
+        return OptResult(*(None if t is None else t[0] for t in self))
 
     def reason_name(self) -> str:
         """Human-readable convergence reason (scalar results only)."""
@@ -97,6 +104,31 @@ def convergence_check(
     failed = torch.as_tensor(objective_failed, device=reason.device)
     reason = torch.where(failed, code(ConvergenceReason.OBJECTIVE_NOT_IMPROVING), reason)
     return torch.where(iteration >= max_iterations, code(ConvergenceReason.MAX_ITERATIONS), reason)
+
+
+def init_tracking(max_iterations: int, f0: Tensor, g0_norm: Tensor, enabled: bool):
+    """Fixed-size NaN-padded tracking tensors [B, max_iterations + 1] with
+    slot 0 holding the initial state (the reference's states tracker);
+    (None, None) when tracking is off."""
+    if not enabled:
+        return None, None
+    shape = f0.shape + (max_iterations + 1,)
+    values = torch.full(shape, float("nan"), dtype=f0.dtype, device=f0.device)
+    gnorms = torch.full(shape, float("nan"), dtype=f0.dtype, device=f0.device)
+    values[..., 0] = f0
+    gnorms[..., 0] = g0_norm
+    return values, gnorms
+
+
+def record_tracking(values, gnorms, idx: Tensor, f: Tensor, gnorm: Tensor, active: Tensor):
+    """Write (f, gnorm) at slot ``idx`` of every ``active`` lane; frozen lanes
+    keep their record, as a vmapped while_loop keeps theirs."""
+    if values is None:
+        return None, None
+    slot = torch.arange(values.shape[-1], device=values.device) == idx.unsqueeze(-1).long()
+    slot = slot & active.unsqueeze(-1)
+    return (torch.where(slot, f.unsqueeze(-1), values),
+            torch.where(slot, gnorm.unsqueeze(-1), gnorms))
 
 
 def any_lane(mask: Tensor) -> bool:

@@ -2,6 +2,8 @@
 
 Two-loop recursion over fixed-size NEWEST-FIRST (s, y) buffers, strong-Wolfe
 line search and the reference's convergence reasons (LBFGS.scala:39-157).
+``two_loop_direction`` and ``push_history`` are shared with OWL-QN and
+LBFGSB.
 
 The JAX solver is one ``lax.while_loop``, vmapped over entities in the
 random-effect solves. Here it is a host loop over a leading lane axis: each
@@ -12,7 +14,7 @@ A 1-D ``x0`` is solved as a single lane.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -21,7 +23,9 @@ from photon_ml_tpu_torch.optimization.common import (
     OptResult,
     any_lane,
     convergence_check,
+    init_tracking,
     norm,
+    record_tracking,
 )
 from photon_ml_tpu_torch.types import ConvergenceReason
 
@@ -30,6 +34,15 @@ Tensor = torch.Tensor
 
 def _dot(a: Tensor, b: Tensor) -> Tensor:
     return torch.sum(a * b, dim=-1)
+
+
+def project(x: Tensor, lower_bounds: Optional[Tensor], upper_bounds: Optional[Tensor]) -> Tensor:
+    """Clamp into the box (the reference's post-step constraint projection)."""
+    if lower_bounds is not None:
+        x = torch.maximum(x, lower_bounds)
+    if upper_bounds is not None:
+        x = torch.minimum(x, upper_bounds)
+    return x
 
 
 def two_loop_direction(g: Tensor, S: Tensor, Y: Tensor, rho: Tensor, n_written: Tensor) -> Tensor:
@@ -90,36 +103,42 @@ def minimize_lbfgs(
     tolerance: float = 1e-7,
     history_length: int = 10,
     max_line_search_iterations: int = 10,
+    lower_bounds: Optional[Tensor] = None,
+    upper_bounds: Optional[Tensor] = None,
     track_states: bool = False,
 ) -> OptResult:
     """Minimize a smooth function with L-BFGS, one problem per lane.
 
     ``value_and_grad`` maps [B, d] to ([B], [B, d]); with a 1-D ``x0`` it
-    maps [d] to ([], [d]) and the result has no lane axis.
+    maps [d] to ([], [d]) and the result has no lane axis. Bounds, when
+    given, project the iterate after each accepted step (the reference's
+    post-step constraint projection, LBFGS.scala:120-130); the value and
+    gradient are then evaluated again at the projected point. For fully
+    constrained optimization use ``lbfgsb.minimize_lbfgsb``.
     """
-    if track_states:
-        raise NotImplementedError("per-iteration state tracking is not ported (ROADMAP A8)")
     if x0.dim() == 1:
         def vg1(x):
             f, g = value_and_grad(x[0])
             return f.unsqueeze(0), g.unsqueeze(0)
 
-        res = minimize_lbfgs(
+        return minimize_lbfgs(
             vg1, x0.unsqueeze(0), max_iterations=max_iterations, tolerance=tolerance,
             history_length=history_length,
             max_line_search_iterations=max_line_search_iterations,
-        )
-        return OptResult(*(t[0] for t in res))
+            lower_bounds=lower_bounds, upper_bounds=upper_bounds, track_states=track_states,
+        ).first_lane()
 
     m = history_length
     B, d = x0.shape
     dtype, dev = x0.dtype, x0.device
     NOT_CONVERGED = int(ConvergenceReason.NOT_CONVERGED)
+    bounded = lower_bounds is not None or upper_bounds is not None
 
-    x = x0
+    x = project(x0, lower_bounds, upper_bounds)
     f, g = value_and_grad(x)
     loss_abs_tol = torch.abs(f) * tolerance
     grad_abs_tol = norm(g) * tolerance
+    tv, tg = init_tracking(max_iterations, f, norm(g), track_states)
     # already stationary (exact zero gradient, e.g. a warm start at the optimum)
     reason = torch.where(
         norm(g) == 0.0,
@@ -159,9 +178,13 @@ def minimize_lbfgs(
             active=active,
         )
 
-        x_new = x + ls.alpha.unsqueeze(-1) * direction
+        x_new = project(x + ls.alpha.unsqueeze(-1) * direction, lower_bounds, upper_bounds)
         s = x_new - x
-        f_new, g_new = ls.value, ls.grad
+        if bounded:
+            # the line search's value belongs to the unprojected point
+            f_new, g_new = value_and_grad(x_new)
+        else:
+            f_new, g_new = ls.value, ls.grad
         y = g_new - g
         sy = _dot(s, y)
         S_n, Y_n, rho_n, nw_n = push_history(S, Y, rho, n_written, s, y, sy, sy > 1e-10)
@@ -177,6 +200,7 @@ def minimize_lbfgs(
         x_new = torch.where(ok, x_new, x)
         f_new = torch.where(ls.success, f_new, f)
         g_new = torch.where(ok, g_new, g)
+        tv, tg = record_tracking(tv, tg, k_new, f_new, norm(g_new), active)
 
         # a lane that had already converged keeps its state
         a1, a2, a3 = active.unsqueeze(-1), active.view(-1, 1, 1), active
@@ -187,4 +211,5 @@ def minimize_lbfgs(
         k, n_written = torch.where(a3, k_new, k), torch.where(a3, nw_n, n_written)
         reason = torch.where(a3, reason_n, reason)
 
-    return OptResult(coefficients=x, value=f, gradient=g, iterations=k, convergence_reason=reason)
+    return OptResult(coefficients=x, value=f, gradient=g, iterations=k, convergence_reason=reason,
+                     tracked_values=tv, tracked_grad_norms=tg)

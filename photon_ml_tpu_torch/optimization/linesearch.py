@@ -1,6 +1,7 @@
-"""Strong-Wolfe line search over a batch of lanes.
+"""Strong-Wolfe and Armijo line searches over a batch of lanes.
 
-Port of photon_ml_tpu/optimization/linesearch.py::strong_wolfe. The JAX
+Port of photon_ml_tpu/optimization/linesearch.py (``strong_wolfe`` and
+``backtracking_armijo``, the latter for OWL-QN and LBFGSB). The JAX
 search is one ``lax.while_loop`` whose state machine covers both the
 bracketing and zoom phases of Nocedal & Wright Alg. 3.5/3.6, vmapped over
 lanes in the random-effect solves. Here the state machine is written out
@@ -189,3 +190,46 @@ def _body(st: dict, phi, f0: Tensor, dphi0: Tensor, big: Tensor) -> dict:
         a_lo=a_lo, f_lo=f_lo, dphi_lo=dphi_lo, a_hi=a_hi, f_hi=f_hi, dphi_hi=dphi_hi,
         a_best=a_best, f_best=f_best, g_best=g_best,
     )
+
+
+def backtracking_armijo(
+    phi: Callable[[Tensor], tuple[Tensor, Tensor]],
+    f0: Tensor,
+    dphi0: Tensor,
+    init_alpha: Tensor,
+    max_iters: int = 10,
+    shrink: float = 0.5,
+    active=None,
+) -> LineSearchResult:
+    """Per-lane Armijo backtracking, the line search of OWL-QN and the
+    projected LBFGSB, whose projected paths are not smooth enough for Wolfe.
+
+    ``phi(a)`` maps step sizes [B] to (f [B], grad [B, d]) at the trial
+    points; ``dphi0`` is the directional derivative of the (pseudo-)
+    gradient. A lane whose ``|dphi0|`` is below the float resolution of f0
+    tries alpha = 0 first, an exact no-op that passes at once, and so does
+    every lane outside ``active``: they never extend the trip count. One
+    host sync per backtracking trip (:func:`common.any_lane`).
+    """
+    fin = torch.finfo(f0.dtype)
+    # same NaN/inf handling as strong_wolfe: non-finite states must search
+    searchable = ~(dphi0 >= -(fin.eps * torch.clamp_min(torch.abs(f0), fin.tiny))) | ~torch.isfinite(f0)
+    if active is not None:
+        searchable = searchable & active
+    a = torch.where(searchable, torch.as_tensor(init_alpha, dtype=f0.dtype, device=f0.device),
+                    torch.zeros_like(f0))
+    f_a, g_a = phi(a)
+    i = torch.ones_like(f0, dtype=torch.int32)
+    while True:
+        running = (f_a > f0 + C1 * a * dphi0) & (i < max_iters)
+        if not any_lane(running):
+            break
+        a_n = torch.where(running, a * shrink, a)
+        f_n, g_n = phi(a_n)
+        a = a_n
+        f_a = torch.where(running, f_n, f_a)
+        g_a = _where(running, g_n, g_a)
+        i = i + running.to(torch.int32)
+    success = f_a <= f0 + C1 * a * dphi0
+    return LineSearchResult(alpha=torch.where(success, a, torch.zeros_like(a)),
+                            value=torch.where(success, f_a, f0), grad=g_a, success=success, evals=i)

@@ -30,9 +30,11 @@ from photon_ml_tpu_torch.optimization.common import (
     OptResult,
     any_lane,
     convergence_check,
+    init_tracking,
     norm,
+    record_tracking,
 )
-from photon_ml_tpu_torch.optimization.tron import project
+from photon_ml_tpu_torch.optimization.lbfgs import project
 from photon_ml_tpu_torch.types import ConvergenceReason
 
 Tensor = torch.Tensor
@@ -99,20 +101,17 @@ def minimize_newton(
     included in both); with a 1-D ``x0`` both take one problem and the
     result has no lane axis. Box bounds are applied by post-step projection.
     """
-    if track_states:
-        raise NotImplementedError("per-iteration state tracking is not ported (ROADMAP A8)")
     if x0.dim() == 1:
         def vg1(x):
             f, g = value_and_grad(x[0])
             return f.unsqueeze(0), g.unsqueeze(0)
 
-        res = minimize_newton(
+        return minimize_newton(
             vg1, lambda x: hessian(x[0]).unsqueeze(0), x0.unsqueeze(0),
             max_iterations=max_iterations, tolerance=tolerance,
             max_line_search_iterations=max_line_search_iterations,
-            lower_bounds=lower_bounds, upper_bounds=upper_bounds,
-        )
-        return OptResult(*(t[0] for t in res))
+            lower_bounds=lower_bounds, upper_bounds=upper_bounds, track_states=track_states,
+        ).first_lane()
 
     NOT_CONVERGED = int(ConvergenceReason.NOT_CONVERGED)
     bounded = lower_bounds is not None or upper_bounds is not None
@@ -120,6 +119,7 @@ def minimize_newton(
     f, g = value_and_grad(x)
     loss_abs_tol = torch.abs(f) * tolerance
     grad_abs_tol = norm(g) * tolerance
+    tv, tg = init_tracking(max_iterations, f, norm(g), track_states)
     reason = torch.where(
         norm(g) == 0.0, int(ConvergenceReason.GRADIENT_CONVERGED), NOT_CONVERGED
     ).to(torch.int32)
@@ -158,6 +158,7 @@ def minimize_newton(
         ok = ls.success.unsqueeze(-1)
         x_new, g_new = torch.where(ok, x_new, x), torch.where(ok, g_new, g)
         f_new = torch.where(ls.success, f_new, f)
+        tv, tg = record_tracking(tv, tg, k_new, f_new, norm(g_new), active)
 
         # a lane that had already converged keeps its state
         a1 = active.unsqueeze(-1)
@@ -165,4 +166,5 @@ def minimize_newton(
         f = torch.where(active, f_new, f)
         k, reason = torch.where(active, k_new, k), torch.where(active, reason_n, reason)
 
-    return OptResult(coefficients=x, value=f, gradient=g, iterations=k, convergence_reason=reason)
+    return OptResult(coefficients=x, value=f, gradient=g, iterations=k, convergence_reason=reason,
+                     tracked_values=tv, tracked_grad_norms=tg)

@@ -34,8 +34,11 @@ from photon_ml_tpu_torch.optimization.common import (
     OptResult,
     any_lane,
     convergence_check,
+    init_tracking,
     norm,
+    record_tracking,
 )
+from photon_ml_tpu_torch.optimization.lbfgs import project
 from photon_ml_tpu_torch.types import ConvergenceReason
 
 Tensor = torch.Tensor
@@ -54,15 +57,6 @@ def _dot(a: Tensor, b: Tensor) -> Tensor:
 
 def _safe_div(a: Tensor, b: Tensor) -> Tensor:
     return a / torch.where(b == 0.0, torch.ones_like(b), b)
-
-
-def project(x: Tensor, lower_bounds: Optional[Tensor], upper_bounds: Optional[Tensor]) -> Tensor:
-    """Clamp into the box (the reference's post-step constraint projection)."""
-    if lower_bounds is not None:
-        x = torch.maximum(x, lower_bounds)
-    if upper_bounds is not None:
-        x = torch.minimum(x, upper_bounds)
-    return x
 
 
 def truncated_conjugate_gradient(
@@ -143,21 +137,18 @@ def minimize_tron(
     axis. Box bounds are applied by projection of the trial point
     (TRON.scala:216-221).
     """
-    if track_states:
-        raise NotImplementedError("per-iteration state tracking is not ported (ROADMAP A8)")
     if x0.dim() == 1:
         def vg1(x):
             f, g = value_and_grad(x[0])
             return f.unsqueeze(0), g.unsqueeze(0)
 
-        res = minimize_tron(
+        return minimize_tron(
             vg1, lambda x, v: hvp(x[0], v[0]).unsqueeze(0), x0.unsqueeze(0),
             max_iterations=max_iterations, tolerance=tolerance,
             max_cg_iterations=max_cg_iterations,
             max_improvement_failures=max_improvement_failures,
-            lower_bounds=lower_bounds, upper_bounds=upper_bounds,
-        )
-        return OptResult(*(t[0] for t in res))
+            lower_bounds=lower_bounds, upper_bounds=upper_bounds, track_states=track_states,
+        ).first_lane()
 
     NOT_CONVERGED = int(ConvergenceReason.NOT_CONVERGED)
     x = project(x0, lower_bounds, upper_bounds)
@@ -165,6 +156,7 @@ def minimize_tron(
     g0_norm = norm(g)
     loss_abs_tol = torch.abs(f) * tolerance
     grad_abs_tol = g0_norm * tolerance
+    tv, tg = init_tracking(max_iterations, f, g0_norm, track_states)
     # already stationary (a warm start at the optimum): delta = ||g0|| = 0
     # would otherwise reject every attempt until OBJECTIVE_NOT_IMPROVING
     reason = torch.where(
@@ -236,6 +228,8 @@ def minimize_tron(
             ),
         )
 
+        tv, tg = record_tracking(tv, tg, k_new, f_new, norm(g_new), active)
+
         # a lane that had already converged keeps its state
         v1 = active.unsqueeze(-1)
         x, g = torch.where(v1, x_new, x), torch.where(v1, g_new, g)
@@ -243,4 +237,5 @@ def minimize_tron(
         k, fails = torch.where(active, k_new, k), torch.where(active, fails_n, fails)
         reason = torch.where(active, reason_n, reason)
 
-    return OptResult(coefficients=x, value=f, gradient=g, iterations=k, convergence_reason=reason)
+    return OptResult(coefficients=x, value=f, gradient=g, iterations=k, convergence_reason=reason,
+                     tracked_values=tv, tracked_grad_norms=tg)

@@ -4,14 +4,16 @@ The flagship model is a fixed effect plus per-entity random effects
 (BASELINE.json config #3). One pass (CoordinateDescent.scala:119-346) is:
 
 - FE score: ``fe_X @ coef``;
-- FE solve: the configured optimizer (L-BFGS, TRON or NEWTON) over the
+- FE solve: the configured optimizer (L-BFGS, OWL-QN, TRON or NEWTON) over the
   GLM objective with the other coordinates' scores as offsets; when fused,
   kernel B1 computes each value+gradient, B2 each TRON Hessian-vector
   product and B3 each NEWTON Hessian (up to 512 columns);
 - RE solves: each random-effect coordinate's buckets as batched lanes of
-  the configured optimizer, one lane per entity, never fused (NEWTON
-  builds the stock [E, K, K] Hessians and factors them with the unrolled
-  small_linalg Cholesky);
+  the configured optimizer, or of the direct Gram/Cholesky Newton solves
+  under ``re_solver="direct"`` ("auto": for K <= 32), one lane per
+  entity, never fused (NEWTON and the direct solves build the stock
+  [E, K, K] Hessians and factor them with the unrolled small_linalg
+  Cholesky);
 - RE score: a per-sample gather of each entity's coefficients.
 
 The JAX package jits the pass over a device mesh. Here the pass runs
@@ -169,10 +171,11 @@ def game_train_step(
 ) -> tuple[dict, dict]:
     """One coordinate-descent pass over [fixed, re_0, re_1, ...].
 
-    Each coordinate runs the optimizer of its config (LBFGS, TRON or
-    NEWTON). ``fuse_fe`` lets the fixed-effect objective take kernels B1,
-    B2 and B3 when the switch is on (ops/fused_glm.should_fuse). The input
-    params are not modified.
+    Each coordinate runs the optimizer of its config (LBFGS, OWLQN, TRON
+    or NEWTON); ``re_solver`` picks the random effects' bucket solver.
+    ``fuse_fe`` lets the fixed-effect objective take kernels B1, B2 and B3
+    when the switch is on (ops/fused_glm.should_fuse). The input params
+    are not modified.
 
     Returns (new params, diagnostics {fe_value, fe_iterations, total_scores,
     re_iterations_max}); diagnostics stay on the device.

@@ -37,8 +37,12 @@ Design:
   ``models.game.fixed_effect_view_score``. Both sum each row in a fixed
   order whose bits depend neither on the number of rows nor on trailing
   zero padding, so the padded engine and the unpadded eager scorer agree
-  bit for bit on dense fixed-effect models. A sparse fixed-effect request
-  scores through a per-sample gather/dot.
+  bit for bit on dense fixed effects under ``FE_SPARSE_MIN_COLS`` (1,024)
+  columns. A sparse fixed-effect request scores through a per-sample
+  gather/dot, and so does a dense one of 1,024 columns or more, with its
+  values kept at the model's dtype: dropping its zeros changes the pairing
+  of the row sum, so that route agrees with eager within rounding (a few
+  ulps of the row's terms), not bitwise.
 
 Padding discipline: padded rows carry entity row -1, column slot -1 and value
 0 everywhere, so every per-row computation is inert and the trailing rows are
@@ -167,7 +171,9 @@ def model_fingerprint(model: GameModel) -> str:
             h.update(m.re_type.encode())
             h.update(m.feature_shard_id.encode())
             h.update(str(m.task).encode())
-            h.update("\x1f".join(str(e) for e in m.entity_ids).encode())
+            # the type with the text: int ids and their string forms (a model
+            # read back from its files) look up different requests
+            h.update("\x1f".join(f"{type(e).__name__}:{e}" for e in m.entity_ids).encode())
             _hash_array(h, m.coeffs)
             _hash_array(h, m.proj_indices)
             if m.projector is not None:
@@ -395,14 +401,16 @@ class GameServingEngine:
         return batch, n
 
     @staticmethod
-    def _per_sample_view(X: sp.csr_matrix, n: int, n_pad: int):
+    def _per_sample_view(X: sp.csr_matrix, n: int, n_pad: int, vals_dtype=np.float32):
         """[n_pad, W] (global cols, vals) from a CSR matrix, entries in CSR
         order with W = the request's max row nnz padded to its width bucket.
-        Padding entries carry col -1 / val 0 and add exact zeros."""
+        Padding entries carry col -1 / val 0 and add exact zeros. Values are
+        stored as ``vals_dtype``: float32 as the eager path stores sparse
+        values, or a dense fixed effect's own dtype on its wide route."""
         counts = np.diff(X.indptr)
         W = width_bucket(int(counts.max()) if n else 1)
         cols = np.full((n_pad, W), -1, dtype=np.int32)
-        vals = np.zeros((n_pad, W), dtype=np.float32)
+        vals = np.zeros((n_pad, W), dtype=vals_dtype)
         rows_per_nnz = slot_per_nnz = None
         if n and X.nnz:
             rows_per_nnz = np.repeat(np.arange(n), counts)
@@ -414,15 +422,19 @@ class GameServingEngine:
     def _prepare_fixed(self, st: _FixedCoord, data: GameInput, n: int, n_pad: int):
         X = data.shard(st.feature_shard_id)
         if not sp.issparse(X):
+            values_dtype = torch_to_numpy_dtype(st.values_dtype)
             arr = np.asarray(X)
             if arr.shape[1] < FE_SPARSE_MIN_COLS:
-                padded = np.zeros((n_pad, arr.shape[1]),
-                                  dtype=torch_to_numpy_dtype(st.values_dtype))
+                padded = np.zeros((n_pad, arr.shape[1]), dtype=values_dtype)
                 padded[:n] = arr
                 return {"values": padded}
             # wide-K routing: never a [B, K] buffer for a wide fixed effect;
-            # the same per-sample branch as a sparse-container request
-            X = sp.csr_matrix(arr)
+            # the per-sample branch of a sparse-container request, with the
+            # values kept at the model's dtype (dropping the zeros changes
+            # the sum's pairing: equal to eager within rounding, not bitwise)
+            cols, vals, _, _ = self._per_sample_view(sp.csr_matrix(arr.astype(values_dtype)),
+                                                     n, n_pad, values_dtype)
+            return {"cols": cols, "vals": vals}
         cols, vals, _, _ = self._per_sample_view(X.tocsr(), n, n_pad)
         return {"cols": cols, "vals": vals}
 

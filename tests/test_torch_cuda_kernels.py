@@ -340,3 +340,87 @@ def test_hvp_margin_shift_shifts_z_not_dv(storage):
         assert all(_within(a, b, c) for a, b, c in zip(got, want, scale)), loss.name
         assert all(torch.equal(a, b) for a, b in zip(got, on_offsets)), loss.name
         assert not _within(on_dv[0], got[0], scale[0]), loss.name
+
+
+def _solve_pair(problem, data, **bounds):
+    """(fused, stock) results of one GLMOptimizationProblem.run on the card,
+    with B1's launches in the fused one."""
+    out = []
+    for fuse in (True, False):
+        with fused_glm.fused_override(fuse):
+            before = fused_glm.fused_loss_grad_sums.launches
+            model, res = problem.run(data, **bounds)
+            out.append((model, res, fused_glm.fused_loss_grad_sums.launches - before))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["OWLQN", "LBFGSB"])
+def test_b1_under_owlqn_and_lbfgsb_matches_stock(opt):
+    """Config #2's shape (50,000 x 64, ``make_glm_workload(seed=2)``): an
+    OWLQN elastic-net and an LBFGSB linear solve run their every evaluation
+    through B1, and the objective equals the stock solve's within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from photon_ml_tpu_torch import interop
+    from photon_ml_tpu_torch.data.dataset import LabeledData
+    from photon_ml_tpu_torch.optimization.common import OptimizerConfig
+    from photon_ml_tpu_torch.optimization.config import (
+        GLMOptimizationConfiguration,
+        RegularizationContext,
+    )
+    from photon_ml_tpu_torch.optimization.problem import GLMOptimizationProblem
+
+    wl = interop.make_glm_workload(seed=2, n_samples=50_000, n_features=64)
+    reg = (RegularizationContext("ELASTIC_NET", 0.5) if opt == "OWLQN"
+           else RegularizationContext("L2"))
+    problem = GLMOptimizationProblem(task="LINEAR_REGRESSION", configuration=(
+        GLMOptimizationConfiguration(OptimizerConfig(optimizer_type=opt, max_iterations=100),
+                                     reg, 1.0 if opt == "LBFGSB" else 5000.0)))
+    data = LabeledData.build(wl["X"], wl["y_linear"], dtype=torch.float32, device="cuda")
+    bounds = {} if opt == "OWLQN" else {"lower_bounds": np.full(64, -0.1),
+                                        "upper_bounds": np.full(64, 0.1)}
+    (mf, rf, launches), (ms, rs, stock) = _solve_pair(problem, data, **bounds)
+    assert launches > 0 and stock == 0
+    assert abs(float(rf.value) - float(rs.value)) <= 1e-4 * abs(float(rs.value))
+    coef = mf.coefficients.means
+    if opt == "LBFGSB":
+        assert bool((coef.abs() <= 0.1).all()) and bool((coef.abs() == 0.1).any())
+    else:
+        assert bool((coef == 0).any())
+
+
+@pytest.mark.cuda
+def test_b3_with_normalization_inside_a_newton_fit():
+    """A NEWTON solve under STANDARDIZATION on the card: B3 builds each
+    Hessian with real shifts and factors, B1 evaluates with a non-zero
+    margin shift, and the fused fit's objective and coefficients equal the
+    stock fit's within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from photon_ml_tpu_torch import interop
+    from photon_ml_tpu_torch.data.dataset import LabeledData
+    from photon_ml_tpu_torch.normalization import FeatureDataStatistics, NormalizationContext
+    from photon_ml_tpu_torch.optimization.common import OptimizerConfig
+    from photon_ml_tpu_torch.optimization.config import (
+        GLMOptimizationConfiguration,
+        RegularizationContext,
+    )
+    from photon_ml_tpu_torch.optimization.problem import GLMOptimizationProblem
+
+    wl = interop.make_glm_workload(seed=2, n_samples=50_000, n_features=64)
+    X = np.hstack([np.ones((50_000, 1), np.float32), wl["X"] * 3.0 + 1.5])
+    norm = NormalizationContext.build("STANDARDIZATION",
+                                      FeatureDataStatistics.compute(X, intercept_index=0))
+    assert np.abs(norm.shifts).max() > 1.0
+    problem = GLMOptimizationProblem(
+        task="POISSON_REGRESSION", normalization=norm,
+        configuration=GLMOptimizationConfiguration(
+            OptimizerConfig(optimizer_type="NEWTON", max_iterations=30),
+            RegularizationContext("L2"), 1.0))
+    data = LabeledData.build(X, wl["y_poisson"], dtype=torch.float32, device="cuda")
+    b3 = fused_hess.fused_hessian_matrix.launches
+    (mf, rf, b1), (ms, rs, stock) = _solve_pair(problem, data)
+    assert fused_hess.fused_hessian_matrix.launches > b3 and b1 > 0 and stock == 0
+    assert abs(float(rf.value) - float(rs.value)) <= 1e-4 * abs(float(rs.value))
+    torch.testing.assert_close(mf.coefficients.means, ms.coefficients.means, rtol=0, atol=1e-4)

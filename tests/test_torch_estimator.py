@@ -9,8 +9,8 @@ get the same numpy arrays.
 - Host loop at f64 against the JAX estimator's per-bucket path
   (``re_update_program=False``; its update program's bitwise contract fails
   on this runtime, ROADMAP §C), over a two-weight L2 sweep of the fixed
-  effect with warm starts chained: FE coefficients and RE tables (rtol 1e-6,
-  atol 1e-9), FE iterations and reasons, RE reason counts and iteration
+  effect with warm starts chained: FE coefficients and RE tables (atol
+  1e-9), FE iterations and reasons, RE reason counts and iteration
   means and maxima (equal), every validation AUC (atol 1e-9), and the same
   configuration chosen by ``select_best_model``.
 - The same fit at f32 with the fused switch on both sides: JAX runs its
@@ -24,11 +24,18 @@ get the same numpy arrays.
   pass's FE iterations and every per-pass AUC.
 - Both packages warm-started from the same model (a port model carried to
   JAX through ``interop.game_model_to_numpy``) fit alike.
+- The knobs ported with OWL-QN, LBFGSB, the direct solves and feature
+  normalization (normalization, re_solver, box constraints, L1, elastic
+  net) fit as the JAX estimator does, host loop at f64 (the three fits of
+  chip_smoke.py's phase 11c among them); a checkpointed fit with
+  ``re_solver="auto"``, crashed and resumed, equals the whole fit bitwise.
 - Every knob of a later slice raises ``NotImplementedError`` naming its
   ROADMAP item, and an ineligible fused pass raises with its reasons.
 """
 
 import contextlib
+import dataclasses
+import json
 import os
 
 import jax.numpy as jnp
@@ -137,7 +144,7 @@ def _table(model, cid):
     return np.asarray(t) if not isinstance(t, torch.Tensor) else t.numpy()
 
 
-def _compare(jres, tres, coef_atol, auc_atol, rtol=1e-6, iterations=True):
+def _compare(jres, tres, coef_atol, auc_atol, iterations=True):
     assert len(jres) == len(tres)
     for j, t in zip(jres, tres):
         assert {c: w.regularization_weight for c, w in t.configuration.items()} == \
@@ -146,7 +153,7 @@ def _compare(jres, tres, coef_atol, auc_atol, rtol=1e-6, iterations=True):
             if cid != "global":
                 assert t.model.get_model(cid).entity_ids == j.model.get_model(cid).entity_ids
             np.testing.assert_allclose(_table(t.model, cid), _table(j.model, cid),
-                                       rtol=rtol, atol=coef_atol, err_msg=cid)
+                                       rtol=0, atol=coef_atol, err_msg=cid)
             if not iterations:
                 continue
             for jt, tt in zip(j.descent.trackers[cid], t.descent.trackers[cid], strict=True):
@@ -186,7 +193,7 @@ def test_fused_switch_fit_matches_jax():
         tres, _ = _fit("port", tin, torch.float32, tolerance=1e-4)
     assert fused_glm.fused_loss_grad_sums_plain.calls > calls  # B1's route was taken
     assert tres[0].model.get_model("global").model.coefficients.means.dtype == torch.float32
-    _compare(jres, tres, coef_atol=1e-5, auc_atol=1e-6, rtol=0)
+    _compare(jres, tres, coef_atol=1e-5, auc_atol=1e-6)
 
 
 def test_fused_pass_matches_jax():
@@ -240,30 +247,176 @@ def _with(cid, **changes):
     return configs
 
 
+def _intercept_inputs():
+    """The split with an intercept column in front of the fixed-effect shard
+    (standardization needs one), in both packages."""
+    (jin, tin) = _inputs()
+
+    def add(gi):
+        X = np.asarray(gi.features["global"])
+        features = dict(gi.features, **{"global": np.hstack([np.ones((len(X), 1), X.dtype), X])})
+        return dataclasses.replace(gi, features=features)
+
+    return tuple(add(g) for g in jin), tuple(add(g) for g in tin)
+
+
+def _standardization(train, pkg):
+    """STANDARDIZATION contexts of the two shards (intercept at column 0)."""
+    from photon_ml_tpu.normalization import FeatureDataStatistics as JStats
+    from photon_ml_tpu.normalization import NormalizationContext as JNorm
+    from photon_ml_tpu.types import NormalizationType as JNT
+    from photon_ml_tpu_torch.normalization import FeatureDataStatistics
+    from photon_ml_tpu_torch.types import NormalizationType
+
+    out = {}
+    for shard in ("global", "re"):
+        X = train.features[shard]
+        if pkg == "jax":
+            out[shard] = JNorm.build(JNT.STANDARDIZATION, JStats.compute(X, intercept_index=0))
+        else:
+            out[shard] = NormalizationContext.build(
+                NormalizationType.STANDARDIZATION,
+                FeatureDataStatistics.compute(X, intercept_index=0))
+    return out
+
+
+def _fe_bounds(d):
+    """Box bounds from a constraint string over the fixed effect's index map:
+    the first half of the features within +-0.1."""
+    from photon_ml_tpu_torch.optimization.constraints import build_bound_vectors
+
+    text = json.dumps([{"name": f"f{j}", "term": "", "lowerBound": -0.1, "upperBound": 0.1}
+                       for j in range(d // 2)])
+    return build_bound_vectors(text, interop.glmix_index_maps(n_features=d)["global"])
+
+
+def _reconfigure(configs, pkg, cid, opt=None, reg=None, alpha=None, weight=1.0, **changes):
+    """``configs[cid]`` with another optimizer and regularization and other
+    CoordinateConfiguration fields, in either package."""
+    if pkg == "jax":
+        cfg, optc, regc, rt = JCfg, JOpt, JReg, JRT
+    else:
+        cfg, optc, regc, rt = GLMOptimizationConfiguration, OptimizerConfig, RegularizationContext, \
+            RegularizationType
+    old = configs[cid].optimization_config
+    if opt is not None or reg is not None:
+        changes["optimization_config"] = cfg(
+            optc(optimizer_type=opt or old.optimizer_config.optimizer_type.value,
+                 max_iterations=old.optimizer_config.max_iterations,
+                 tolerance=old.optimizer_config.tolerance),
+            regc(rt(reg or "L2"), alpha), weight)
+    return dict(configs, **{cid: dataclasses.replace(configs[cid], **changes)})
+
+
+def _knob_fit(pkg, knob, inputs):
+    """The fit of a knob's parity case in either package (host loop, f64;
+    JAX on its per-bucket path)."""
+    configs = _configs(pkg)
+    kw = {}
+    if knob == "normalization":  # a NEWTON FE, both shards standardized, RE "auto"
+        configs = _reconfigure(configs, pkg, "global", opt="NEWTON")
+        kw = {"normalization_contexts": _standardization(inputs[0], pkg), "re_solver": "auto"}
+    elif knob == "re_solver":
+        kw = {"re_solver": "direct"}
+    elif knob == "box_constraints":  # LBFGSB FE in a box that binds
+        configs = _reconfigure(configs, pkg, "global", opt="LBFGSB",
+                               box_constraints=_fe_bounds(SPLIT["n_features"]))
+    elif knob == "l1":
+        for cid in ("global", "per-user"):
+            configs = _reconfigure(configs, pkg, cid, opt="OWLQN", reg="L1", weight=10.0)
+    elif knob == "elastic_net":  # an OWLQN elastic-net FE, RE "direct"
+        configs = _reconfigure(configs, pkg, "global", opt="OWLQN", reg="ELASTIC_NET", alpha=0.5,
+                               weight=20.0)
+        kw = {"re_solver": "direct"}
+    if pkg == "jax":
+        kw["re_update_program"] = False
+        est = JEstimator(task=JTask.LOGISTIC_REGRESSION, coordinate_configurations=configs,
+                         n_iterations=2, validation_evaluators=["AUC"], dtype=jnp.float64, **kw)
+    else:
+        est = _port_estimator(configs=configs, n_iterations=2, validation_evaluators=["AUC"],
+                              dtype=torch.float64, **kw)
+    return est.fit(inputs[0], validation_data=inputs[1])
+
+
 OUT_OF_SLICE = {
     "fe_storage_dtype": ({"fe_storage_dtype": torch.bfloat16}, "A8"),
     "re_storage_dtype": ({"re_storage_dtype": torch.bfloat16}, "A8"),
     "re_precision": ({"re_precision": "bf16"}, "A13"),
     "re_working_set_rows": ({"re_working_set_rows": 64}, "A13"),
-    "normalization": ({"normalization_contexts": {"global": NormalizationContext(
-        factors=np.ones(16))}}, "A8"),
-    "re_solver": ({"re_solver": "direct"}, "A7b"),
+    "normalization": None,
+    "re_solver": None,
     "down_sampling": ({"configs": _with("global", down_sampling_rate=0.5)}, "A14"),
-    "box_constraints": ({"configs": _with("global", box_constraints=(-np.ones(16), np.ones(16)))},
-                        "A7b"),
-    "l1": ({"configs": _with("global", optimization_config=GLMOptimizationConfiguration(
-        regularization_context=RegularizationContext(RegularizationType.L1)))}, "A7b"),
-    "elastic_net": ({"configs": _with("per-user", optimization_config=GLMOptimizationConfiguration(
-        regularization_context=RegularizationContext(RegularizationType.ELASTIC_NET, 0.5)))},
-        "A7b"),
+    "box_constraints": None,
+    "l1": None,
+    "elastic_net": None,
 }
 
 
 @pytest.mark.parametrize("knob", list(OUT_OF_SLICE))
 def test_out_of_slice_knobs_raise(knob):
-    kw, item = OUT_OF_SLICE[knob]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        _port_estimator(**kw)
+    """A knob of a later slice raises naming its ROADMAP item; a knob the
+    port carries (None here) fits as the JAX estimator does, host loop at
+    f64: coefficients (atol 1e-9), FE iterations and reasons, RE
+    reason counts and iteration statistics, and every validation AUC
+    (1e-9). The normalization, elastic-net and box cases are the three fits
+    of chip_smoke.py's phase 11c at a small size."""
+    if OUT_OF_SLICE[knob] is not None:
+        kw, item = OUT_OF_SLICE[knob]
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            _port_estimator(**kw)
+        return
+    jin, tin = _intercept_inputs() if knob == "normalization" else _inputs()
+    jres, tres = _knob_fit("jax", knob, jin), _knob_fit("port", knob, tin)
+    _compare(jres, tres, coef_atol=1e-9, auc_atol=1e-9)
+    fe = _table(tres[0].model, "global")
+    if knob == "box_constraints":
+        lo, hi = _fe_bounds(SPLIT["n_features"])
+        assert np.all(fe >= lo) and np.all(fe <= hi) and np.any(np.abs(fe[:8]) == 0.1)
+    if knob in ("l1", "elastic_net"):
+        assert np.any(fe == 0.0)
+
+
+def test_checkpointed_auto_fit_resumes_bitwise(tmp_path, monkeypatch):
+    """Phase 11c(i) on the CPU: the normalized NEWTON + "auto" fit,
+    checkpointed, crashed by ``coord.update:crash:4`` (the first update of
+    iteration 2) and resumed, equals the whole fit bitwise, its "auto"
+    record included; the record was read back, not measured again."""
+    from photon_ml_tpu_torch.algorithm import coordinate as tcoord
+    from photon_ml_tpu_torch.resilience import InjectedCrash, armed
+
+    _, (train, val) = _intercept_inputs()
+    probes = []
+    real = tcoord.measure_auto_solvers
+
+    def counting(*a, **k):
+        probes.append(None)
+        return real(*a, **k)
+
+    def fit(ckpt):
+        configs = _reconfigure(_configs("port"), "port", "global", opt="NEWTON")
+        est = _port_estimator(configs=configs, n_iterations=2, validation_evaluators=["AUC"],
+                              dtype=torch.float64, re_solver="auto", checkpoint_directory=ckpt,
+                              normalization_contexts=_standardization(train, "port"))
+        return est.fit(train, validation_data=val)[0]
+
+    monkeypatch.setattr(tcoord, "measure_auto_solvers", counting)
+    whole = fit(str(tmp_path / "a"))
+    assert len(probes) == 2  # one probe per random-effect coordinate
+    with pytest.raises(InjectedCrash):
+        with armed("coord.update:crash:4"):
+            fit(str(tmp_path / "b"))
+    probes.clear()
+    resumed = fit(str(tmp_path / "b"))
+    assert probes == []  # the record came from the checkpoint
+    for cid in COORDS:
+        assert np.array_equal(_table(whole.model, cid), _table(resumed.model, cid)), cid
+        assert np.array_equal(_table(whole.best_model, cid), _table(resumed.best_model, cid)), cid
+    assert whole.best_metric == resumed.best_metric
+    from photon_ml_tpu_torch.io.checkpoint import load_checkpoint
+
+    extra = [load_checkpoint(str(tmp_path / d / "config_0"), device="cpu")["extra"]
+             for d in ("a", "b")]
+    assert extra[0] == extra[1] and set(extra[0]["re_solver_auto"]) == {"per-user", "per-item"}
 
 
 def test_random_projection_and_active_data_caps_raise_at_fit():

@@ -292,3 +292,35 @@ def test_interop_round_trip_and_jax_scoring(rng):
             score_model_on_dataset(back.get_model(cid), tval[cid]).numpy(),
             np.asarray(jmodels[cid].score_dataset(jval[cid])), atol=1e-12)
     assert isinstance(JGameModel(jmodels), JGameModel) and isinstance(back, GameModel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_fixed_effect_scores_in_byte_bounded_chunks(dtype, rng, monkeypatch):
+    """Validation and transform scores of a dense fixed effect form their
+    [rows, D] products in row chunks no larger than the byte bound, with the
+    same bits as one unchunked product (``row_sum`` is row-independent)."""
+    from photon_ml_tpu_torch.models import game
+
+    n, d = 1000, 37
+    values = torch.as_tensor(rng.normal(size=(n, d)), dtype=dtype)
+    means = torch.as_tensor(rng.normal(size=d), dtype=dtype)
+    whole = game.row_sum(values * means)
+    seen, real = [], game.row_sum
+
+    def recording(terms):
+        seen.append(terms.shape[0] * 64 * terms.element_size())  # 64: D padded to 2^k
+        return real(terms)
+
+    monkeypatch.setattr(game, "row_sum", recording)
+    assert torch.equal(game.fixed_effect_view_score(values, means), whole)
+    assert seen == [n * 64 * values.element_size()]  # under the default bound: one product
+    seen.clear()
+    bound = 10_000
+    monkeypatch.setattr(game, "FE_SCORE_CHUNK_BYTES", bound)
+    rows = game.score_chunk_rows(d, values.element_size())
+    assert rows * 64 * values.element_size() <= bound < (rows + 1) * 64 * values.element_size()
+    chunked = game.fixed_effect_view_score(values, means)
+    assert torch.equal(chunked, whole)
+    assert len(seen) == -(-n // rows) and max(seen) <= bound
+    monkeypatch.setattr(game, "FE_SCORE_CHUNK_BYTES", 16)
+    assert game.score_chunk_rows(5000, 8) == 1  # a row wider than the bound: one row

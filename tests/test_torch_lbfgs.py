@@ -85,18 +85,36 @@ def test_re_bucket_solver_matches_jax_per_lane(rng):
 
 
 def test_unported_options_raise():
-    for opt in (OptimizerType.OWLQN, OptimizerType.LBFGSB):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_minimizer(TConfig(optimizer_type=opt))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsc.glm_solver(TaskType.LOGISTIC_REGRESSION, TConfig(), False, True, False,
-                       VarianceComputationType.SIMPLE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsc.glm_solver(TaskType.LOGISTIC_REGRESSION, TConfig(), True, False, False,
-                       VarianceComputationType.NONE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsc.re_bucket_solver(TaskType.LOGISTIC_REGRESSION, TConfig(), False,
-                             VarianceComputationType.NONE, "direct")
+    """The options of the later slices now work: OWLQN and LBFGSB build,
+    ``glm_solver`` takes bounds and an L1 weight, and the bucket solver takes
+    ``re_solver="direct"``; L1 without OWLQN still raises."""
+    quad = lambda x: (0.5 * (x * x).sum(), x)  # noqa: E731
+    for opt, kw in ((OptimizerType.OWLQN, {"l1_weight": 0.5}),
+                    (OptimizerType.LBFGSB, {"lower_bounds": torch.full((2,), 0.5)})):
+        res = build_minimizer(TConfig(optimizer_type=opt))(quad, torch.ones(2), **kw)
+        assert int(res.convergence_reason) != 0
+        np.testing.assert_allclose(res.coefficients.numpy(), [0.0, 0.0] if opt == "OWLQN" else
+                                   [0.5, 0.5], atol=1e-6)
+    X = torch.as_tensor(np.random.default_rng(0).normal(size=(40, 3)))
+    data = TData.build(X.numpy(), (X[:, 0] > 0).double().numpy(), dtype=torch.float64,
+                       device="cpu")
+    lo = torch.full((3,), -0.1, dtype=torch.float64)
+    res, var = tsc.glm_solver(TaskType.LOGISTIC_REGRESSION, TConfig(), False, True, False,
+                              VarianceComputationType.SIMPLE)(
+        data, torch.zeros(3, dtype=torch.float64), 1.0, 0.0, lo, None, NO_NORMALIZATION)
+    assert bool((res.coefficients >= lo).all()) and var.shape == (3,)
+    res, _ = tsc.glm_solver(TaskType.LOGISTIC_REGRESSION, TConfig(optimizer_type="OWLQN"), True,
+                            False, False, VarianceComputationType.NONE)(
+        data, torch.zeros(3, dtype=torch.float64), 1.0, 5.0, None, None, NO_NORMALIZATION)
+    assert int((res.coefficients == 0).sum()) >= 1
+    E, S, K = 3, 8, 2
+    Xb = torch.as_tensor(np.random.default_rng(1).normal(size=(E, S, K)))
+    ones = torch.ones((E, S), dtype=torch.float64)
+    w, reasons, iters, _ = tsc.re_bucket_solver(TaskType.LINEAR_REGRESSION, TConfig(), False,
+                                                VarianceComputationType.NONE, "direct")(
+        Xb, Xb[..., 0], ones, 0 * ones, torch.zeros((E, K), dtype=torch.float64),
+        torch.ones(E, dtype=torch.float64), 0.0)
+    assert iters.tolist() == [1, 1, 1] and bool(torch.isfinite(w).all())
     minimize = build_minimizer(TConfig())
     with pytest.raises(ValueError, match="OWLQN"):
         minimize(lambda x: (x.sum(), x), torch.zeros(2), l1_weight=0.5)

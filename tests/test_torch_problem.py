@@ -184,9 +184,15 @@ def test_bounds_and_normalization_rejected():
     data = TData.build(np.ones((4, 3)), np.zeros(4), dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="Box constraints"):
         tp.run(data, lower_bounds=np.zeros(3))
-    _, plain = _problems("LINEAR_REGRESSION")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        plain.run(data, upper_bounds=np.ones(3))
+    # without normalization the bound reaches the solve, as in JAX
+    jplain, plain = _problems("LINEAR_REGRESSION")
+    rng = np.random.default_rng(3)
+    X, y = rng.normal(size=(40, 3)), rng.normal(size=40) + 2.0
+    upper = np.full(3, 0.1)
+    tm, tres = plain.run(TData.build(X, y, dtype=torch.float64, device="cpu"), upper_bounds=upper)
+    jm, jres = jplain.run(JData.build(X, y, dtype=jnp.float64), upper_bounds=jnp.asarray(upper))
+    assert bool((tm.coefficients.means <= 0.1).all())
+    _same_result(tres, jres, 1e-9)
 
 
 @pytest.mark.parametrize("task", list(JTask))

@@ -83,3 +83,84 @@ def test_unported_options_raise(rng):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tre.build_random_effect_dataset(X, ent, "u", labels=labels, features_max=2,
                                         device="cpu")
+
+
+def _standardization(X, pkg):
+    from photon_ml_tpu.normalization import FeatureDataStatistics as JStats
+    from photon_ml_tpu.normalization import NormalizationContext as JNorm
+    from photon_ml_tpu_torch.normalization import FeatureDataStatistics, NormalizationContext
+
+    if pkg == "jax":
+        return JNorm.build("STANDARDIZATION", JStats.compute(X, intercept_index=0))
+    return NormalizationContext.build("STANDARDIZATION",
+                                      FeatureDataStatistics.compute(X, intercept_index=0))
+
+
+def test_normalized_build_matches_jax_exactly(rng):
+    """Standardized training blocks, x' = (x - shift) * factor over every
+    valid (sample, observed column) cell: equal to JAX's exactly; the
+    scoring view keeps raw values."""
+    X, ent, labels, weights = _inputs(rng)
+    j = jbuild(X, ent, "userId", labels=labels, weights=weights, intercept_index=0,
+               normalization=_standardization(X, "jax"), dtype=jnp.float64,
+               bucket_merge_fraction=0.0)
+    t = tre.build_random_effect_dataset(X, ent, "userId", labels=labels, weights=weights,
+                                        intercept_index=0,
+                                        normalization=_standardization(X, "port"),
+                                        dtype=torch.float64, bucket_merge_fraction=0.0,
+                                        device="cpu")
+    for tb, jb in zip(t.buckets, j.buckets, strict=True):
+        np.testing.assert_array_equal(tb.X.numpy(), np.asarray(jb.X))
+    np.testing.assert_array_equal(t.sample_vals.numpy(), np.asarray(j.sample_vals))
+    assert not np.array_equal(t.buckets[0].X.numpy(), tre.build_random_effect_dataset(
+        X, ent, "userId", labels=labels, weights=weights, dtype=torch.float64,
+        bucket_merge_fraction=0.0, device="cpu").buckets[0].X.numpy())
+
+
+@pytest.mark.parametrize("opt", ["LBFGS", "OWLQN"])
+def test_normalized_random_effect_matches_jax(opt, rng):
+    """Per-entity normalization gathered through the projection table: the
+    per-bucket path against JAX's (warm start in the original space,
+    solution converted back), and the update program equal to the
+    per-bucket path bitwise."""
+    from photon_ml_tpu.algorithm.random_effect import train_random_effect as jtrain
+    from photon_ml_tpu.optimization.common import OptimizerConfig as JOpt
+    from photon_ml_tpu.optimization.config import GLMOptimizationConfiguration as JCfg
+    from photon_ml_tpu.optimization.config import RegularizationContext as JReg
+    from photon_ml_tpu.types import TaskType as JTask
+    from photon_ml_tpu_torch.algorithm.coordinate import RandomEffectCoordinate
+    from photon_ml_tpu_torch.algorithm.random_effect import train_random_effect
+    from photon_ml_tpu_torch.optimization.common import OptimizerConfig
+    from photon_ml_tpu_torch.optimization.config import (
+        GLMOptimizationConfiguration,
+        RegularizationContext,
+    )
+
+    X, ent, labels, weights = _inputs(rng)
+    n = X.shape[0]
+    reg = "ELASTIC_NET" if opt == "OWLQN" else "L2"
+    alpha = 0.5 if opt == "OWLQN" else None
+    tnorm, jnorm = _standardization(X, "port"), _standardization(X, "jax")
+    jds = jbuild(X, ent, "userId", labels=labels, weights=weights, intercept_index=0,
+                 normalization=jnorm, dtype=jnp.float64)
+    tds = tre.build_random_effect_dataset(X, ent, "userId", labels=labels, weights=weights,
+                                          intercept_index=0, normalization=tnorm,
+                                          dtype=torch.float64, device="cpu")
+    off = 0.1 * rng.normal(size=n)
+    jm, jt = jtrain(jds, JTask.LOGISTIC_REGRESSION,
+                    JCfg(JOpt(optimizer_type=opt), JReg(reg, alpha), 2.0), jnp.asarray(off),
+                    normalization=jnorm)
+    cfg = GLMOptimizationConfiguration(OptimizerConfig(optimizer_type=opt),
+                                       RegularizationContext(reg, alpha), 2.0)
+    tm, tt = train_random_effect(tds, "LOGISTIC_REGRESSION", cfg, torch.as_tensor(off),
+                                 normalization=tnorm)
+    np.testing.assert_allclose(tm.coeffs.numpy(), np.asarray(jm.coeffs), rtol=1e-6, atol=1e-9)
+    assert tt.convergence_reason_counts == jt.convergence_reason_counts
+    assert (tt.iterations_mean, tt.iterations_max) == (jt.iterations_mean, jt.iterations_max)
+    coord = RandomEffectCoordinate(coordinate_id="u", dataset=tds, task="LOGISTIC_REGRESSION",
+                                   configuration=cfg, base_offsets=torch.as_tensor(off),
+                                   normalization=tnorm)
+    zeros = torch.zeros(n, dtype=torch.float64)
+    model, score, _ = coord.update_and_score(None, zeros, zeros)
+    assert torch.equal(model.coeffs, tm.coeffs)
+    assert torch.equal(score, coord.score(tm))

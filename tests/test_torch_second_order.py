@@ -308,11 +308,15 @@ def test_factory_dispatch_and_requires(rng):
     with pytest.raises(ValueError, match="OWLQN"):
         build_minimizer(OptimizerConfig(optimizer_type=OptimizerType.NEWTON))(
             tvg, x0, hess=th, l1_weight=0.5)
-    for opt in (OptimizerType.OWLQN, OptimizerType.LBFGSB):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-            build_minimizer(OptimizerConfig(optimizer_type=opt))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        build_minimizer(OptimizerConfig())(tvg, x0, lower_bounds=-torch.ones(3, dtype=torch.float64))
+    with pytest.raises(ValueError, match="box"):
+        build_minimizer(OptimizerConfig(optimizer_type=OptimizerType.OWLQN))(
+            tvg, x0, l1_weight=0.1, lower_bounds=-torch.ones(3, dtype=torch.float64))
+    with pytest.raises(ValueError, match="LBFGSB requires box bounds"):
+        build_minimizer(OptimizerConfig(optimizer_type=OptimizerType.LBFGSB))(tvg, x0)
+    # bounded LBFGS projects: every coefficient inside the box
+    lo = torch.full((3,), -0.05, dtype=torch.float64)
+    res = build_minimizer(OptimizerConfig())(tvg, x0, lower_bounds=lo, upper_bounds=-lo)
+    assert bool((res.coefficients.abs() <= 0.05).all())
 
 
 def test_second_order_rejected_for_smoothed_hinge():
@@ -394,9 +398,19 @@ def test_fe_glm_solver_matches_jax(opt, rng):
     assert any_lane.syncs > syncs
     _same(tres, jres)
     np.testing.assert_allclose(tvar.numpy(), np.asarray(jvar), rtol=1e-10)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        tsc.glm_solver(TaskType.LOGISTIC_REGRESSION, OptimizerConfig(optimizer_type=opt), False,
-                       True, False, VarianceComputationType.NONE)
+    # with an upper bound that binds, the same solve against JAX's bounded one
+    hi = np.full(d, 0.5)
+    jres, _ = jsc.glm_solver(JTask.LOGISTIC_REGRESSION, JConfig(optimizer_type=JOpt(opt),
+                             max_iterations=50), False, False, True, JVar.NONE,
+                             allow_fused=False)(jd, jnp.zeros(d), jnp.asarray(1.0),
+                                                jnp.asarray(0.0), empty, jnp.asarray(hi), JNorm())
+    tres, _ = tsc.glm_solver(TaskType.LOGISTIC_REGRESSION,
+                             OptimizerConfig(optimizer_type=opt, max_iterations=50), False, False,
+                             True, VarianceComputationType.NONE, allow_fused=False)(
+        td, torch.zeros(d, dtype=torch.float64), 1.0, 0.0, None, torch.as_tensor(hi),
+        NO_NORMALIZATION)
+    assert bool((tres.coefficients == 0.5).any())  # the bound binds
+    _same(tres, jres)
 
 
 # ------------------------------------------------- solves through the kernels

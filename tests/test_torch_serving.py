@@ -360,17 +360,86 @@ def test_sparse_fixed_effect_request(rng):
 
 
 def test_wide_dense_request_routes_through_the_sparse_view(rng):
+    """A dense request of FE_SPARSE_MIN_COLS columns takes the per-sample
+    view with its values at the model's dtype; at f32 it equals the CSR
+    container request bitwise (the same values in the same CSR order)."""
     d = FE_SPARSE_MIN_COLS
-    model = GameModel(models={"fixed": _fixed(rng, d=d)})
     dense = np.zeros((16, d))
     for i in range(16):
         dense[i, rng.choice(d, size=6, replace=False)] = rng.normal(size=6)
-    eng = get_engine(model, **CPU)
-    fe = eng._prepare(GameInput(features={"global": dense}))[0]["coord:fixed"]
-    assert "values" not in fe and fe["cols"].shape[1] == width_bucket(6) == 8
-    np.testing.assert_array_equal(
-        eng.score(GameInput(features={"global": dense}), include_offsets=False),
-        eng.score(GameInput(features={"global": sp.csr_matrix(dense)}), include_offsets=False))
+    for dtype in (torch.float32, torch.float64):
+        eng = get_engine(GameModel(models={"fixed": _fixed(rng, d=d, dtype=dtype)}), **CPU)
+        fe = eng._prepare(GameInput(features={"global": dense}))[0]["coord:fixed"]
+        assert "values" not in fe and fe["cols"].shape[1] == width_bucket(6) == 8
+        assert fe["vals"].dtype == (np.float32 if dtype == torch.float32 else np.float64)
+        if dtype == torch.float32:
+            np.testing.assert_array_equal(
+                eng.score(GameInput(features={"global": dense}), include_offsets=False),
+                eng.score(GameInput(features={"global": sp.csr_matrix(dense)}),
+                          include_offsets=False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_wide_dense_engine_matches_eager(dtype, rng):
+    """At 1,024 columns and more the engine's dense route drops zeros, so
+    its row sums pair the terms otherwise than eager's: the scores agree
+    within 2 * ceil(log2 D) units of rounding of each row's sum of
+    absolute terms (the pairwise-summation bound of both orders), in the
+    eager scorer's dtype. Under 1,024 columns they agree bitwise
+    (``assert_parity``)."""
+    n, d = 64, 1100
+    X = rng.normal(size=(n, d))
+    X[rng.random(size=X.shape) < 0.3] = 0.0
+    model = GameModel(models={"fixed": _fixed(rng, d=d, dtype=dtype)})
+    data = GameInput(features={"global": X}, offsets=np.zeros(n))
+    eager = GameTransformer(model=model, engine="eager", **CPU).score(data, include_offsets=False)
+    fused = GameTransformer(model=model, **CPU).score(data, include_offsets=False)
+    assert fused.dtype == eager.dtype
+    means = model.get_model("fixed").model.coefficients.means.numpy()
+    scale = np.abs(X.astype(means.dtype) * means).sum(axis=1)
+    bound = 2 * int(np.ceil(np.log2(d))) * np.finfo(means.dtype).eps * scale
+    assert np.all(np.abs(fused - eager) <= bound), np.max(np.abs(fused - eager) / scale)
+    assert not np.array_equal(fused, eager) or dtype == torch.float64  # the pairing differs
+
+
+def test_int_and_string_id_models_do_not_share_an_engine(rng, tmp_path):
+    """A model with int entity ids (an in-process fit) and its Avro round
+    trip (string ids) get different fingerprints and engines, in either
+    order of caching; the round trip's engine equals the eager scorer
+    bitwise on string-id requests, and models loaded from the same files
+    share one engine."""
+    from photon_ml_tpu_torch.data.index_map import IndexMap, feature_key
+    from photon_ml_tpu_torch.io.model_io import load_game_model, save_game_model
+    from photon_ml_tpu_torch.types import intercept_key
+
+    E, K = 4, 2
+    coeffs = torch.as_tensor(rng.normal(size=(E, K)), dtype=torch.float32)
+    proj = torch.as_tensor(np.tile(np.arange(K, dtype=np.int32), (E, 1)))
+    int_model = GameModel(models={
+        "fixed": _fixed(rng, d=3, dtype=torch.float32),
+        "per-user": RandomEffectModel(re_type="userId", feature_shard_id="re_shard",
+                                      task=TaskType.LOGISTIC_REGRESSION,
+                                      entity_ids=tuple(range(E)), coeffs=coeffs,
+                                      proj_indices=proj)})
+    maps = {"fixed": IndexMap([feature_key(f"g{j}") for j in range(3)]),
+            "per-user": IndexMap([intercept_key(), feature_key("r1", "t")])}
+    save_game_model(str(tmp_path / "m"), int_model, maps)
+    str_model = load_game_model(str(tmp_path / "m"), maps, dtype=torch.float32, device="cpu")
+    assert str_model.get_model("per-user").entity_ids == tuple(str(i) for i in range(E))
+    assert model_fingerprint(int_model) != model_fingerprint(str_model)
+    again = load_game_model(str(tmp_path / "m"), maps, dtype=torch.float32, device="cpu")
+    assert model_fingerprint(again) == model_fingerprint(str_model)
+    req = GameInput(features={"global": rng.normal(size=(6, 3)),
+                              "re_shard": sp.csr_matrix(rng.normal(size=(6, K)))},
+                    id_columns={"userId": np.asarray([str(i % E) for i in range(6)], dtype=object)})
+    for first in (int_model, str_model):  # either model cached first
+        clear_engine_cache()
+        get_engine(first, **CPU)
+        fused = GameTransformer(model=str_model, **CPU).score(req)
+        eager = GameTransformer(model=str_model, engine="eager", **CPU).score(req)
+        np.testing.assert_array_equal(fused, eager)
+        assert get_engine(again, **CPU) is get_engine(str_model, **CPU)
+    assert np.abs(eager).max() > 0
 
 
 # -------------------------------------------------------- buckets and cache
