@@ -1,0 +1,13 @@
+"""Settings of the benchmark's own tests (run with ``python -m pytest
+portbench/tests``; ``pytest tests/`` does not collect them)."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs a CUDA device; skips without one")
