@@ -76,6 +76,7 @@ from photon_ml_tpu_torch.models.game import (
 )
 from photon_ml_tpu_torch.models.glm import model_class_for_task
 from photon_ml_tpu_torch.normalization import NO_NORMALIZATION, NormalizationContext
+from photon_ml_tpu_torch.optimization.bucket_graphs import BucketGraphs
 from photon_ml_tpu_torch.optimization.config import GLMOptimizationConfiguration
 from photon_ml_tpu_torch.optimization.normal_equations import (
     AutoSolverDecision,
@@ -818,9 +819,10 @@ class RandomEffectCoordinate(Coordinate):
 
     def _update_static(self):
         """The update program's iteration-invariant inputs, built once: the
-        per-entity L2 table, the per-bucket normalization gathers, and under
-        a reduced precision the buckets and scoring view with their feature
-        values cast to the storage dtype."""
+        per-entity L2 table, the per-bucket normalization gathers, under a
+        reduced precision the buckets and scoring view with their feature
+        values cast to the storage dtype, and the bucket solves' CUDA graphs
+        (optimization/bucket_graphs.py)."""
         if self._static is None:
             ds = self.dataset
             dtype = ds.sample_vals.dtype
@@ -835,6 +837,7 @@ class RandomEffectCoordinate(Coordinate):
                 norm_tables=precompute_norm_tables(ds, self.normalization, dtype),
                 buckets=buckets,
                 view=view,
+                graphs=BucketGraphs(),
             )
         return self._static
 
@@ -939,6 +942,7 @@ class RandomEffectCoordinate(Coordinate):
             ds.n_entities,
             self._solver_plan(offsets_plus_scores, initial_model),
             self.precision,
+            graphs=st["graphs"],
         )
         aligned = initial_model.aligned_to(ds)
         coeffs_prev = aligned.coeffs.to(dtype)

@@ -39,6 +39,7 @@ from photon_ml_tpu_torch.data.random_effect import RandomEffectDataset, _next_po
 from photon_ml_tpu_torch.device import to_host
 from photon_ml_tpu_torch.function.losses import loss_for_task
 from photon_ml_tpu_torch.models.game import RandomEffectModel
+from photon_ml_tpu_torch.optimization.bucket_graphs import BucketGraphs
 from photon_ml_tpu_torch.optimization.config import GLMOptimizationConfiguration
 from photon_ml_tpu_torch.optimization.normal_equations import AutoSolverDecision
 from photon_ml_tpu_torch.optimization.solver_cache import (
@@ -362,10 +363,13 @@ def train_random_effect(
     l2_rows = build_l2_rows(dataset, configuration.l2_weight, per_entity_reg_weights, dtype, E)
     solves = bucket_solves(task, configuration.optimizer_config, bool(configuration.l1_weight),
                            variance_computation, re_solver, len(dataset.buckets))
+    if dataset.graphs is None:
+        dataset.graphs = BucketGraphs()
     reasons, iters = solve_buckets(solves, dataset.buckets, coeffs, variances,
                                    offsets_plus_scores, l2_rows,
                                    configuration.l1_weight or 0.0,
-                                   precompute_norm_tables(dataset, normalization, dtype))
+                                   precompute_norm_tables(dataset, normalization, dtype),
+                                   None, None, dataset.graphs)
     tracker = RandomEffectTracker.from_parts(reasons, iters)
     model = RandomEffectModel(
         re_type=dataset.re_type,

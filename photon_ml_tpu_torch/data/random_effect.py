@@ -100,6 +100,9 @@ class RandomEffectDataset:
     owned_rows: Optional[Tensor] = None
     lane_masks: Optional[tuple] = None
     block_rows: Optional[tuple] = None
+    # the bucket solves' CUDA graphs (optimization/bucket_graphs.BucketGraphs),
+    # made by the first solve of the buckets that takes them
+    graphs: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def n_entities(self) -> int:

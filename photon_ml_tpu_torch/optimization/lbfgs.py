@@ -128,88 +128,135 @@ def minimize_lbfgs(
             lower_bounds=lower_bounds, upper_bounds=upper_bounds, track_states=track_states,
         ).first_lane()
 
-    m = history_length
-    B, d = x0.shape
-    dtype, dev = x0.dtype, x0.device
-    NOT_CONVERGED = int(ConvergenceReason.NOT_CONVERGED)
-    bounded = lower_bounds is not None or upper_bounds is not None
-
-    x = project(x0, lower_bounds, upper_bounds)
-    f, g = value_and_grad(x)
-    loss_abs_tol = torch.abs(f) * tolerance
-    grad_abs_tol = norm(g) * tolerance
-    tv, tg = init_tracking(max_iterations, f, norm(g), track_states)
-    # already stationary (exact zero gradient, e.g. a warm start at the optimum)
-    reason = torch.where(
-        norm(g) == 0.0,
-        int(ConvergenceReason.GRADIENT_CONVERGED),
-        NOT_CONVERGED,
-    ).to(torch.int32)
-    S = torch.zeros((B, m, d), dtype=dtype, device=dev)
-    Y = torch.zeros((B, m, d), dtype=dtype, device=dev)
-    rho = torch.zeros((B, m), dtype=dtype, device=dev)
-    k = torch.zeros((B,), dtype=torch.int32, device=dev)
-    n_written = torch.zeros((B,), dtype=torch.int32, device=dev)
-    one = torch.ones((), dtype=dtype, device=dev)
-
+    st = lbfgs_init(value_and_grad, x0, history_length, tolerance, lower_bounds, upper_bounds)
+    tv, tg = init_tracking(max_iterations, st["f"], norm(st["g"]), track_states)
     while True:
-        active = reason == NOT_CONVERGED
+        active = lbfgs_active(st)
         if not any_lane(active):
             break
-        direction = two_loop_direction(g, S, Y, rho, n_written)
-        dphi0 = _dot(g, direction)
-        # safeguard: steepest descent when not a descent direction
-        bad = dphi0 >= 0
-        direction = torch.where(bad.unsqueeze(-1), -g, direction)
-        dphi0 = torch.where(bad, -_dot(g, g), dphi0)
-
-        def phi(a, x=x, direction=direction):
-            ft, gt = value_and_grad(x + a.unsqueeze(-1) * direction)
-            return ft, gt, _dot(gt, direction)
-
-        gnorm = norm(g)
-        init_alpha = torch.where(
-            k == 0, torch.minimum(one, 1.0 / torch.where(gnorm > 0, gnorm, one)), one
-        )
+        direction, dphi0, init_alpha = lbfgs_direction(st)
+        phi = line_function(value_and_grad, st["x"], direction)
         ls = linesearch.strong_wolfe(
-            phi, f, g, dphi0, init_alpha,
+            phi, st["f"], st["g"], dphi0, init_alpha,
             max_iters=max_line_search_iterations,
             # frozen lanes must not set the line search's trip count
             active=active,
         )
+        st = lbfgs_tail(value_and_grad, st, direction, ls, active, max_iterations,
+                        lower_bounds, upper_bounds)
+        tv, tg = record_tracking(tv, tg, st["k"], st["f"], norm(st["g"]), active)
 
-        x_new = project(x + ls.alpha.unsqueeze(-1) * direction, lower_bounds, upper_bounds)
-        s = x_new - x
-        if bounded:
-            # the line search's value belongs to the unprojected point
-            f_new, g_new = value_and_grad(x_new)
-        else:
-            f_new, g_new = ls.value, ls.grad
-        y = g_new - g
-        sy = _dot(s, y)
-        S_n, Y_n, rho_n, nw_n = push_history(S, Y, rho, n_written, s, y, sy, sy > 1e-10)
+    return OptResult(coefficients=st["x"], value=st["f"], gradient=st["g"], iterations=st["k"],
+                     convergence_reason=st["reason"], tracked_values=tv, tracked_grad_norms=tg)
 
-        k_new = k + 1
-        reason_n = convergence_check(
-            value=f_new, prev_value=f, grad=g_new, iteration=k_new,
-            max_iterations=max_iterations, loss_abs_tol=loss_abs_tol,
-            grad_abs_tol=grad_abs_tol, objective_failed=~ls.success,
-        )
-        # on line-search failure keep the previous iterate
-        ok = ls.success.unsqueeze(-1)
-        x_new = torch.where(ok, x_new, x)
-        f_new = torch.where(ls.success, f_new, f)
-        g_new = torch.where(ok, g_new, g)
-        tv, tg = record_tracking(tv, tg, k_new, f_new, norm(g_new), active)
 
-        # a lane that had already converged keeps its state
-        a1, a2, a3 = active.unsqueeze(-1), active.view(-1, 1, 1), active
-        x, g = torch.where(a1, x_new, x), torch.where(a1, g_new, g)
-        f = torch.where(a3, f_new, f)
-        S, Y = torch.where(a2, S_n, S), torch.where(a2, Y_n, Y)
-        rho = torch.where(a1, rho_n, rho)
-        k, n_written = torch.where(a3, k_new, k), torch.where(a3, nw_n, n_written)
-        reason = torch.where(a3, reason_n, reason)
+# The solve's steps. minimize_lbfgs runs them in a host loop; the graphed
+# random-effect solve (optimization/bucket_graphs.py) replays the same steps
+# from CUDA graphs over static buffers, so both compute the same bits. The
+# state passed between steps is a dict of [B, ...] tensors:
+# x, f, g, S, Y, rho, k, n_written, reason, loss_abs_tol, grad_abs_tol.
 
-    return OptResult(coefficients=x, value=f, gradient=g, iterations=k, convergence_reason=reason,
-                     tracked_values=tv, tracked_grad_norms=tg)
+
+def lbfgs_init(value_and_grad, x0: Tensor, history_length: int, tolerance: float,
+               lower_bounds: Optional[Tensor] = None,
+               upper_bounds: Optional[Tensor] = None) -> dict:
+    """The first value and gradient, the tolerances made absolute from them,
+    the lanes already stationary, and an empty history."""
+    m = history_length
+    B, d = x0.shape
+    dtype, dev = x0.dtype, x0.device
+    x = project(x0, lower_bounds, upper_bounds)
+    f, g = value_and_grad(x)
+    # already stationary (exact zero gradient, e.g. a warm start at the optimum)
+    reason = torch.where(
+        norm(g) == 0.0,
+        int(ConvergenceReason.GRADIENT_CONVERGED),
+        int(ConvergenceReason.NOT_CONVERGED),
+    ).to(torch.int32)
+    return dict(
+        x=x, f=f, g=g,
+        S=torch.zeros((B, m, d), dtype=dtype, device=dev),
+        Y=torch.zeros((B, m, d), dtype=dtype, device=dev),
+        rho=torch.zeros((B, m), dtype=dtype, device=dev),
+        k=torch.zeros((B,), dtype=torch.int32, device=dev),
+        n_written=torch.zeros((B,), dtype=torch.int32, device=dev),
+        reason=reason,
+        loss_abs_tol=torch.abs(f) * tolerance,
+        grad_abs_tol=norm(g) * tolerance,
+    )
+
+
+def lbfgs_active(st: dict) -> Tensor:
+    """[B] the lanes that take another iteration."""
+    return st["reason"] == int(ConvergenceReason.NOT_CONVERGED)
+
+
+def lbfgs_direction(st: dict) -> tuple[Tensor, Tensor, Tensor]:
+    """(direction, dphi0, init_alpha): the two-loop direction, steepest
+    descent where it does not descend, its slope, and the first trial step."""
+    g = st["g"]
+    direction = two_loop_direction(g, st["S"], st["Y"], st["rho"], st["n_written"])
+    dphi0 = _dot(g, direction)
+    # safeguard: steepest descent when not a descent direction
+    bad = dphi0 >= 0
+    direction = torch.where(bad.unsqueeze(-1), -g, direction)
+    dphi0 = torch.where(bad, -_dot(g, g), dphi0)
+    gnorm = norm(g)
+    one = torch.ones((), dtype=g.dtype, device=g.device)
+    init_alpha = torch.where(
+        st["k"] == 0, torch.minimum(one, 1.0 / torch.where(gnorm > 0, gnorm, one)), one
+    )
+    return direction, dphi0, init_alpha
+
+
+def line_function(value_and_grad, x: Tensor, direction: Tensor):
+    """phi(a) = (f, grad, slope) at x + a * direction, per lane."""
+
+    def phi(a):
+        ft, gt = value_and_grad(x + a.unsqueeze(-1) * direction)
+        return ft, gt, _dot(gt, direction)
+
+    return phi
+
+
+def lbfgs_tail(value_and_grad, st: dict, direction: Tensor, ls, active: Tensor,
+               max_iterations: int, lower_bounds: Optional[Tensor] = None,
+               upper_bounds: Optional[Tensor] = None) -> dict:
+    """The state after the line search ``ls``: the step, the history push,
+    the convergence check, the previous iterate where the search failed,
+    and every lane outside ``active`` frozen."""
+    x, f, g, k = st["x"], st["f"], st["g"], st["k"]
+    x_new = project(x + ls.alpha.unsqueeze(-1) * direction, lower_bounds, upper_bounds)
+    s = x_new - x
+    if lower_bounds is not None or upper_bounds is not None:
+        # the line search's value belongs to the unprojected point
+        f_new, g_new = value_and_grad(x_new)
+    else:
+        f_new, g_new = ls.value, ls.grad
+    y = g_new - g
+    sy = _dot(s, y)
+    S_n, Y_n, rho_n, nw_n = push_history(st["S"], st["Y"], st["rho"], st["n_written"], s, y, sy,
+                                         sy > 1e-10)
+
+    k_new = k + 1
+    reason_n = convergence_check(
+        value=f_new, prev_value=f, grad=g_new, iteration=k_new,
+        max_iterations=max_iterations, loss_abs_tol=st["loss_abs_tol"],
+        grad_abs_tol=st["grad_abs_tol"], objective_failed=~ls.success,
+    )
+    # on line-search failure keep the previous iterate
+    ok = ls.success.unsqueeze(-1)
+    x_new = torch.where(ok, x_new, x)
+    f_new = torch.where(ls.success, f_new, f)
+    g_new = torch.where(ok, g_new, g)
+
+    # a lane that had already converged keeps its state
+    a1, a2, a3 = active.unsqueeze(-1), active.view(-1, 1, 1), active
+    return dict(
+        x=torch.where(a1, x_new, x), f=torch.where(a3, f_new, f), g=torch.where(a1, g_new, g),
+        S=torch.where(a2, S_n, st["S"]), Y=torch.where(a2, Y_n, st["Y"]),
+        rho=torch.where(a1, rho_n, st["rho"]),
+        k=torch.where(a3, k_new, k), n_written=torch.where(a3, nw_n, st["n_written"]),
+        reason=torch.where(a3, reason_n, st["reason"]),
+        loss_abs_tol=st["loss_abs_tol"], grad_abs_tol=st["grad_abs_tol"],
+    )

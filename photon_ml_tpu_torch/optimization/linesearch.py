@@ -78,10 +78,28 @@ def strong_wolfe(
     resolution even after 2^max_iters expansion returns at once as a
     successful no-op (alpha = 0), and so does every lane outside ``active``:
     they never extend the batch's trip count.
+
+    The search is three steps, which the graphed random-effect solve
+    (optimization/bucket_graphs.py) replays as they are:
+    :func:`wolfe_start`, then :func:`wolfe_trip` while
+    :func:`wolfe_running` has a lane, then :func:`wolfe_result`.
     """
+    big = torch.full_like(f0, float("inf"))
+    st = wolfe_start(phi, f0, g0, dphi0, init_alpha, big, max_iters, active)
+    while True:
+        running = wolfe_running(st, max_iters)
+        if not any_lane(running):
+            break
+        st = wolfe_trip(st, running, phi, f0, dphi0, big)
+    return wolfe_result(st, f0, g0)
+
+
+def wolfe_start(phi, f0: Tensor, g0: Tensor, dphi0: Tensor, init_alpha: Tensor, big: Tensor,
+                max_iters: int, active=None) -> dict:
+    """The search's state (:data:`_FIELDS`) after the first trial step.
+    ``big`` is an [B] tensor of +inf, the open end of the bracket."""
     dtype, dev = f0.dtype, f0.device
     fin = torch.finfo(dtype)
-    big = torch.full_like(f0, float("inf"))
     zero = torch.zeros_like(f0)
     # ~(>=), not (<): a NaN dphi0 must stay searchable so it reaches failure
     thresh = fin.eps * torch.clamp_min(torch.abs(f0), fin.tiny) / 2.0 ** min(max_iters, 60)
@@ -91,7 +109,7 @@ def strong_wolfe(
 
     a1 = torch.where(searchable, torch.as_tensor(init_alpha, dtype=dtype, device=dev), zero)
     f_a1, g_a1, dphi_a1 = phi(a1)
-    st = dict(
+    return dict(
         stage=torch.where(searchable, _BRACKETING, _DONE).to(torch.int32),
         i=torch.ones_like(f0, dtype=torch.int32),
         a=a1,
@@ -103,13 +121,22 @@ def strong_wolfe(
         a_best=zero, f_best=f0, g_best=g0,
     )
 
-    while True:
-        running = (st["stage"] < _DONE) & (st["i"] < max_iters)
-        if not any_lane(running):
-            break
-        new = _body(st, phi, f0, dphi0, big)
-        st = {k: _where(running, new[k], st[k]) for k in _FIELDS}
 
+def wolfe_running(st: dict, max_iters: int) -> Tensor:
+    """[B] the lanes whose search goes on for another trip."""
+    return (st["stage"] < _DONE) & (st["i"] < max_iters)
+
+
+def wolfe_trip(st: dict, running: Tensor, phi, f0: Tensor, dphi0: Tensor, big: Tensor) -> dict:
+    """One trip of the search: :func:`_body` for every lane, kept in the
+    ``running`` lanes; the others keep their state."""
+    new = _body(st, phi, f0, dphi0, big)
+    return {k: _where(running, new[k], st[k]) for k in _FIELDS}
+
+
+def wolfe_result(st: dict, f0: Tensor, g0: Tensor) -> LineSearchResult:
+    """The search's answer from its final state."""
+    zero = torch.zeros_like(f0)
     success = st["stage"] == _DONE
     has_fallback = st["a_best"] > 0
     alpha = torch.where(success, st["a"], torch.where(has_fallback, st["a_best"], zero))

@@ -1,8 +1,11 @@
 """GLM solver factories. Port of photon_ml_tpu/optimization/solver_cache.py.
 
 The JAX module caches one compiled program per static solver configuration.
-PyTorch runs eagerly, so nothing is cached here; the factories keep the JAX
-names and signatures so that callers read the same:
+PyTorch runs eagerly, so the factories cache nothing; the one cache is a
+resident random-effect bucket's CUDA graphs (bucket_graphs.py), which the
+buckets' owner holds and :func:`solve_buckets` hands to the bucket solve.
+The factories keep the JAX names and signatures so that callers read the
+same:
 
 - :func:`glm_solver` returns ``solve(data, x0, l2, l1, lower, upper, norm)
   -> (OptResult, variances)`` for one fixed-effect problem;
@@ -42,6 +45,7 @@ normal_equations.py. Variances NONE, SIMPLE and FULL are ported.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -53,8 +57,8 @@ from photon_ml_tpu_torch.function.objective import GLMObjective, lane_products
 from photon_ml_tpu_torch.models.game import random_effect_view_score
 from photon_ml_tpu_torch.normalization import NO_NORMALIZATION
 from photon_ml_tpu_torch.ops import small_linalg
-from photon_ml_tpu_torch.optimization import normal_equations
-from photon_ml_tpu_torch.optimization.common import OptimizerConfig
+from photon_ml_tpu_torch.optimization import bucket_graphs, normal_equations
+from photon_ml_tpu_torch.optimization.common import OptimizerConfig, any_lane
 from photon_ml_tpu_torch.optimization.factory import build_minimizer
 from photon_ml_tpu_torch.optimization.precision import FLOAT32, resolve_precision
 from photon_ml_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType
@@ -215,7 +219,12 @@ def _re_bucket_solve_fn(
     ``with_active=True`` appends an ``active`` flag (a scalar, or [P] over a
     population) to the signature, the population early-exit path: inactive
     lanes see a masked stationary objective, solve in zero iterations and
-    report zero iterations."""
+    report zero iterations.
+
+    ``graphs`` is a resident bucket's graphed solves (``graphs(key, make)``,
+    :meth:`bucket_graphs.BucketGraphs.driver` of the bucket, handed over by
+    :func:`solve_buckets`): an L-BFGS solve that
+    :func:`bucket_graphs.engages` then replays its trips from CUDA graphs."""
     task = TaskType(task)
     loss = loss_for_task(task)
     minimize = build_minimizer(opt_config)
@@ -224,7 +233,7 @@ def _re_bucket_solve_fn(
     re_solver = normal_equations.validate_re_solver(re_solver, has_l1)
     obj = GLMObjective(loss, allow_fused=False)  # batched lanes: no fused kernel
 
-    def solve(X, y, w, offsets, w0, l2, l1, active=None):
+    def solve(X, y, w, offsets, w0, l2, l1, active=None, graphs=None):
         data = LabeledData(X=DenseDesignMatrix(X), labels=y, offsets=offsets, weights=w)
         lead = w0.shape[:-1]
         lanes, x0 = obj, w0
@@ -245,6 +254,10 @@ def _re_bucket_solve_fn(
                 lanes, data, x0, l2, quadratic=task == TaskType.LINEAR_REGRESSION,
                 tolerance=tolerance, active=active,
             )
+        elif graphs is not None and bucket_graphs.engages(opt_config, has_l1, w0, active):
+            key = (task, opt_config, x0.dtype, offsets.dtype, l2.dtype)
+            res = graphs(key, lambda capture: bucket_graphs.GraphedLbfgs(
+                obj, X, y, w, opt_config, offsets, x0, l2, capture)).solve(x0, offsets, l2)
         else:
             kwargs = {}
             if has_l1:
@@ -325,7 +338,8 @@ def to_original_rows(w: Tensor, factors, shifts, icpt_mask) -> Tensor:
 
 def solve_buckets(solves, buckets, coeffs: Tensor, variances, offsets_plus_scores: Tensor,
                   l2_rows: Tensor, l1, norm_tables=None, solve_dtype=None,
-                  active: Optional[Tensor] = None) -> tuple[list, list]:
+                  active: Optional[Tensor] = None,
+                  graphs: Optional[bucket_graphs.BucketGraphs] = None) -> tuple[list, list]:
     """Every bucket's batched solve, in bucket order, warm-started from and
     written back into the [E, K] table ``coeffs`` (and ``variances``) in
     place. ``solves`` is one solve for every bucket or a per-bucket list
@@ -344,8 +358,13 @@ def solve_buckets(solves, buckets, coeffs: Tensor, variances, offsets_plus_score
     A population carries a leading axis P on ``coeffs`` [P, E, K],
     ``offsets_plus_scores`` [P, N], ``l2_rows`` [P, rows] and ``l1`` [P];
     the bucket data is shared. ``active`` (with the with_active solves) is
-    handed to every solve. Returns the per-bucket (reasons, iterations)
-    tensors."""
+    handed to every solve. ``graphs``, the buckets' owner's
+    :class:`bucket_graphs.BucketGraphs`, marks them resident: each solve
+    that :func:`bucket_graphs.engages` replays its trips from the bucket's
+    CUDA graphs. Returns the per-bucket (reasons, iterations) tensors.
+
+    Under a profiler it counts ``re.trips``, the solver trips (host syncs)
+    of every bucket solve, beside the lane counters."""
     reasons, iters = [], []
     reduced = solve_dtype is not None and solve_dtype != coeffs.dtype
     zero = torch.zeros((), dtype=coeffs.dtype, device=coeffs.device)
@@ -367,8 +386,11 @@ def solve_buckets(solves, buckets, coeffs: Tensor, variances, offsets_plus_score
                 init_b = init_b.to(solve_dtype)
             if tbl is not None:
                 init_b = to_transformed_rows(init_b, *tbl)
+            kw = {} if graphs is None else {"graphs": functools.partial(graphs.driver, b)}
+            syncs = any_lane.syncs
             w_b, reasons_b, iters_b, var_b = solve(b.X, b.labels, b.weights, off_b, init_b, l2_b,
-                                                   l1, *extra)
+                                                   l1, *extra, **kw)
+            count("re.trips", any_lane.syncs - syncs)
             if tbl is not None:
                 w_b = to_original_rows(w_b, *tbl)
                 if variances is not None and tbl[0] is not None:
@@ -407,6 +429,7 @@ def _re_coordinate_update_fn(
     re_solver="lbfgs",
     precision=FLOAT32,
     with_active: bool = False,
+    graphs: Optional[bucket_graphs.BucketGraphs] = None,
 ):
     """The whole-coordinate update body shared by
     :func:`re_coordinate_update_program` (one model) and
@@ -434,7 +457,7 @@ def _re_coordinate_update_fn(
         variances = None if var_prev is None else var_prev.clone()
         reasons, iters = solve_buckets(solves, buckets, coeffs, variances,
                                        offsets_plus_scores, l2_rows, l1, norm_tables,
-                                       solve_dtype, active)
+                                       solve_dtype, active, graphs)
         if coeffs.shape[-2] > n_entities:
             coeffs[..., n_entities:, :] = 0.0
             if variances is not None:
@@ -484,6 +507,7 @@ def re_coordinate_update_program(
     n_entities: int,
     re_solver="lbfgs",
     precision=FLOAT32,
+    graphs: Optional[bucket_graphs.BucketGraphs] = None,
 ):
     """A whole random-effect coordinate update as one call:
 
@@ -513,10 +537,12 @@ def re_coordinate_update_program(
     The table stays on the device and nothing is read to the host between
     buckets beyond the bucket solves' own ``any_lane`` syncs. The JAX
     package's program donates its inputs and caches a compiled program; here
-    the previous table is copied (the select needs it) and nothing is cached.
+    the previous table is copied (the select needs it), and ``graphs``, the
+    coordinate's :class:`bucket_graphs.BucketGraphs` for ``buckets``, holds
+    the bucket solves' CUDA graphs (:func:`solve_buckets`).
     """
     return _re_coordinate_update_fn(task, opt_config, has_l1, variance, n_entities, re_solver,
-                                    precision)
+                                    precision, graphs=graphs)
 
 
 def re_population_update_program(

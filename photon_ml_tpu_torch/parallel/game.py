@@ -14,7 +14,8 @@ effect plus per-entity random effects (BASELINE.json config #3). One pass
   under ``re_solver="direct"`` ("auto": for K <= 32), one lane per
   entity, never fused (NEWTON and the direct solves build the stock
   [E, K, K] Hessians and factor them with the unrolled small_linalg
-  Cholesky);
+  Cholesky); on CUDA an L-BFGS bucket solve replays its trips from the
+  CUDA graphs its coordinate holds (optimization/bucket_graphs.py);
 - RE score: a per-sample gather of each entity's coefficients.
 
 The JAX package jits the pass over a device mesh. Here it runs eagerly:
@@ -57,6 +58,7 @@ from photon_ml_tpu_torch.function.losses import loss_for_task
 from photon_ml_tpu_torch.function.objective import lane_sums
 from photon_ml_tpu_torch.models.game import random_effect_view_score
 from photon_ml_tpu_torch.normalization import NO_NORMALIZATION
+from photon_ml_tpu_torch.optimization.bucket_graphs import BucketGraphs
 from photon_ml_tpu_torch.optimization.config import GLMOptimizationConfiguration
 from photon_ml_tpu_torch.optimization.precision import FLOAT32
 from photon_ml_tpu_torch.optimization.solver_cache import (
@@ -107,6 +109,9 @@ class ShardedRECoordinate:
     # only their samples; the other rows of sample_entity_rows are -1)
     owned_rows: Optional[Tensor] = None
     coeffs_rows: Optional[int] = None
+    # the bucket solves' CUDA graphs, captured in the first pass
+    graphs: BucketGraphs = dataclasses.field(default_factory=BucketGraphs, init=False,
+                                             repr=False, compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -391,7 +396,7 @@ def game_train_step(
             l2_rows = torch.full((coeffs.shape[0],), 1.0, dtype=dtype, device=dev) * re_l2[i]
             with collective_region("entity_solve"):
                 _, iters = solve_buckets(solve, rc.buckets, coeffs, None, offsets_plus, l2_rows,
-                                         cfg.l1_weight or 0.0)
+                                         cfg.l1_weight or 0.0, graphs=rc.graphs)
             # the junk row (and the mesh padding rows) must stay zero
             coeffs[rc.n_entities :] = 0.0
             re_coeffs[i], re_scores[i] = re_exchange(rc, coeffs, _re_score(rc, coeffs))
